@@ -10,7 +10,13 @@ import numpy as np
 import torch
 
 from layoutdm_tpu.configs import TrainConfig
-from layoutdm_tpu_torch.tokenizer.bbox import BboxTokenizer, load_kmeans_centers
+from layoutdm_tpu.data.datasets import LayoutData, load_dataset
+from layoutdm_tpu_torch.tokenizer.bbox import (
+    VAR_NAMES,
+    BboxTokenizer,
+    load_kmeans_centers,
+)
+from layoutdm_tpu_torch.tokenizer.clustering import fit_coordinate_clusters
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 
 # baseline-zoo model names and the port that will bring them
@@ -26,12 +32,14 @@ _LATER = {
 }
 
 
-def resolve_centers(cfg: TrainConfig) -> Optional[np.ndarray]:
-    """Per-coordinate cluster centers for kmeans/percentile quantization,
-    from the cached ``.npz`` the JAX package writes
-    (``<dataset dir>/../clustering_weights/{name}_max{S}_{method}_train_clusters.npz``).
-    Fitting them waits: ``layoutdm_tpu.tokenizer.clustering`` is numpy-only,
-    but its package ``__init__`` imports jax."""
+def resolve_centers(
+    cfg: TrainConfig, train_data: Optional[LayoutData] = None
+) -> Optional[np.ndarray]:
+    """Find or fit per-coordinate cluster centers for kmeans/percentile
+    quantization, as the JAX package does: the cached ``.npz`` at
+    ``<dataset dir>/../clustering_weights/{name}_max{S}_{method}_train_clusters.npz``,
+    else fit on the train split's boxes and cache them there.  The
+    reference's pickled sklearn objects are not read."""
     method = cfg.data.bbox_quantization
     if method == "linear":
         return None
@@ -40,21 +48,29 @@ def resolve_centers(cfg: TrainConfig) -> Optional[np.ndarray]:
     )
     stem = f"{cfg.dataset.name}_max{cfg.dataset.max_seq_length}_{method}_train_clusters"
     path = os.path.join(base, stem + ".npz")
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{path}: {method} cluster centers are read from a cached .npz; "
-            "fit them with the JAX package (layoutdm_tpu.factory) first"
+    nb = cfg.data.num_bin_bboxes
+    if os.path.exists(path):
+        return load_kmeans_centers(path, nb)
+
+    if train_data is None:
+        train_data = load_dataset(
+            cfg.dataset.name, cfg.dataset.dir, "train", cfg.dataset.max_seq_length
         )
-    return load_kmeans_centers(path, cfg.data.num_bin_bboxes)
+    fitted = fit_coordinate_clusters(train_data.bbox[train_data.mask], (nb,), method)
+    os.makedirs(base, exist_ok=True)
+    np.savez(path, **fitted)
+    return np.stack([fitted[f"{k}-{nb}"] for k in VAR_NAMES])
 
 
-def build_tokenizer(cfg: TrainConfig) -> LayoutSequenceTokenizer:
+def build_tokenizer(
+    cfg: TrainConfig, train_data: Optional[LayoutData] = None
+) -> LayoutSequenceTokenizer:
     bb = BboxTokenizer(
         num_bins=cfg.data.num_bin_bboxes,
         var_order=tuple(cfg.data.var_order.split("-")[1:]),
         shared_vocab=cfg.data.shared_bbox_vocab,
         quantization=cfg.data.bbox_quantization,
-        centers=resolve_centers(cfg),
+        centers=resolve_centers(cfg, train_data),
     )
     return LayoutSequenceTokenizer(
         bbox_tokenizer=bb,

@@ -1,15 +1,18 @@
 """Constrained mask-and-replace diffusion — LayoutDM's per-attribute Q
-(port of the sampling half of ``layoutdm_tpu/models/diffusion/constrained.py``;
+(port of ``layoutdm_tpu/models/diffusion/constrained.py``;
 reference `models/categorical_diffusion/constrained.py:27-333`).
 
 The layout lives as one (B, S_elem, A, Vp) tensor in the converter's padded
 partial-lane space and the per-attribute schedules are stacked into
 (A, T[+1]) tables, so every q_* op is one broadcasted computation over the
-attribute axis.  Dead lanes stay pinned to LOG_EPS.  The training members
-(`q_sample`, `corrupt`) wait for the training port.
+attribute axis.  Dead lanes stay pinned to LOG_EPS.  The forward process
+(`q_sample`, `corrupt`) draws x_t by Gumbel-argmax; its noise is an argument,
+or comes from a ``torch.Generator``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,8 +21,10 @@ from layoutdm_tpu_torch.ops.log_math import (
     LOG_EPS,
     ScheduleTables,
     log_add_exp,
+    log_onehot,
     posterior_tail,
 )
+from layoutdm_tpu_torch.ops.samplers import gumbel_noise
 from layoutdm_tpu_torch.tokenizer.converter import Converter
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 
@@ -138,3 +143,40 @@ class ConstrainedQ:
             valid=self.normal_valid,
         )
         return cv.p_to_f_log(out).reshape(B, S_tok, self.Vf)
+
+    def q_sample(
+        self,
+        log_x_start_p: torch.Tensor,
+        t: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Sample x_t ~ q(x_t | x_0) in partial-lane space; returns lane ids
+        (B, S, A).  Dead lanes sit at -1e9 and are never drawn.  ``noise``:
+        Gumbel noise of the logits' shape, drawn from ``generator`` when
+        omitted."""
+        logits = self.q_pred(log_x_start_p, t)
+        logits = torch.cat(
+            [torch.where(self.normal_valid, logits[..., :-1], -1e9), logits[..., -1:]],
+            dim=-1,
+        )
+        if noise is None:
+            noise = gumbel_noise(generator, logits.shape, device=logits.device)
+        return torch.argmax(logits + noise, dim=-1)
+
+    def corrupt(
+        self,
+        seq_full: torch.Tensor,
+        t: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Clean full-vocab ids (B, S_tok) -> corrupted ids x_t (B, S_tok):
+        per-attribute `q_sample`, merged back to the full vocabulary
+        (`constrained.py:243-260`).  The JAX package also returns x_t's log
+        one-hot; the loss reads only the ids, so it is not built here."""
+        cv = self.converter
+        B, S_tok = seq_full.shape
+        ids_p = cv.f_to_p_id(seq_full.reshape(B, S_tok // cv.A, cv.A))
+        lanes = self.q_sample(log_onehot(ids_p, self.Vp), t, generator, noise)
+        return cv.p_to_f_id(lanes).reshape(B, S_tok)

@@ -102,10 +102,12 @@ def timestep_ladder(
 def make_predict_start(apply_fn: Callable, num_classes: int):
     """Wrap the denoiser into p(x0 | x_t): log-softmax over the non-MASK
     classes, MASK lane pinned at -70, clipped to [-70, 0] (`base.py:127-146`).
-    Takes x_t as token ids (B, S)."""
+    Takes x_t as token ids (B, S); a ``dropout`` (`models.nn.Dropout`) runs
+    the denoiser in training mode."""
 
-    def predict_start(ids: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        logits = apply_fn(ids, t)  # (B, S, V) float32
+    def predict_start(ids: torch.Tensor, t: torch.Tensor, dropout=None) -> torch.Tensor:
+        # (B, S, V) float32
+        logits = apply_fn(ids, t) if dropout is None else apply_fn(ids, t, dropout)
         log_pred = torch.log_softmax(logits[..., :-1], dim=-1)
         mask_lane = torch.full_like(log_pred[..., :1], -70.0)
         return torch.clamp(torch.cat([log_pred, mask_lane], dim=-1), -70.0, 0.0)

@@ -1,27 +1,28 @@
-"""LayoutDM — tokenizer + constrained Q + denoiser + reverse chain (port of
-the sampling half of ``layoutdm_tpu/models/layoutdm.py``; reference
+"""LayoutDM — tokenizer + constrained Q + denoiser + reverse chain + loss
+(port of ``layoutdm_tpu/models/layoutdm.py``; reference
 `models/layoutdm.py:26-126`).  Backbone widths shrink by 29/32 for
 parameter parity with the baselines (`models/layoutdm.py:54`).
 
 Ported: ``q_type="constrained"`` with the flattened transformer.  The
-vanilla Q, the aggregated transformer and the training loss come with later
-ports and raise ``NotImplementedError`` here.
+vanilla Q and the aggregated transformer come with later ports and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from layoutdm_tpu.configs import BackboneConfig, ModelConfig, SamplingConfig
 from layoutdm_tpu_torch.models.diffusion.constrained import ConstrainedQ
+from layoutdm_tpu_torch.models.diffusion.loss import LtState, diffusion_loss
 from layoutdm_tpu_torch.models.diffusion.sampler import (
     SamplerCond,
     make_predict_start,
     sample_chain,
 )
-from layoutdm_tpu_torch.models.nn import make_transformer
+from layoutdm_tpu_torch.models.nn import Dropout, make_transformer
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 
 
@@ -66,6 +67,51 @@ class LayoutDM:
             dtype=dtype,
         )
         self._predict_start = make_predict_start(self.net, self.num_classes)
+
+    # -- training -----------------------------------------------------------
+    def init_state(self) -> LtState:
+        return LtState.init(self.q.num_timesteps, self.device)
+
+    def loss(
+        self,
+        tokens,
+        lt_state: LtState,
+        generator: torch.Generator,
+        is_train: bool = True,
+    ):
+        """(losses dict, new LtState).  ``tokens``: `preprocess` output with
+        ``seq`` (B, S) clean token ids, or the ids themselves.  Timesteps,
+        corruption and (when ``is_train``) dropout draw from ``generator``,
+        which lives on the model's device."""
+        seq = tokens["seq"] if isinstance(tokens, dict) else tokens
+        return diffusion_loss(
+            self.q,
+            self._predict_start,
+            seq,
+            lt_state,
+            generator,
+            dropout=Dropout(generator) if is_train else None,
+            auxiliary_loss_weight=self.cfg.auxiliary_loss_weight,
+            is_train=is_train,
+        )
+
+    def preprocess(
+        self, batch: Dict, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        """Dense layout batch (numpy or tensors) -> token batch on the
+        model's device (`layoutdm.py:99-114`).  ``seq_type == "set"``
+        shuffles the element slots of each row, drawing from ``generator``."""
+        ids = {k: v.to(self.device) for k, v in self.tokenizer.encode(batch).items()}
+        if self.cfg.seq_type == "set":
+            if generator is None:
+                raise ValueError("seq_type='set' shuffles with a generator")
+            B, S = ids["mask"].shape
+            C = self.tokenizer.N_var_per_element
+            u = torch.rand((B, S // C), generator=generator, device=generator.device)
+            perm = torch.argsort(u, dim=1).to(self.device)
+            idx = (perm[..., None] * C + torch.arange(C, device=self.device)).reshape(B, S)
+            ids = {k: torch.gather(v, 1, idx) for k, v in ids.items()}
+        return ids
 
     def sample_ids(
         self,

@@ -1,6 +1,6 @@
-"""Timestep-conditioned transformer denoiser (port of the serving half of
-``layoutdm_tpu/models/nn.py``; reference `transformer_utils.py:34-246`,
-`nn_lib.py:73-237`).
+"""Timestep-conditioned transformer denoiser (port of the flattened
+denoiser of ``layoutdm_tpu/models/nn.py``; reference
+`transformer_utils.py:34-246`, `nn_lib.py:73-237`).
 
 Numerics follow the flax modules: parameters are float32; activations run
 in the model's compute ``dtype``; norm statistics are float32 and the vocab
@@ -13,6 +13,14 @@ Modules are built on the meta device and materialised by the caller
 (``LayoutDM`` does ``to_empty`` + ``init_params``), so construction never
 draws from the global RNG; ``init_params`` draws from an explicit
 ``torch.Generator``.
+
+Training mode is a ``Dropout`` passed to ``forward``: it applies the fixed
+0.1 embedding dropout and the Block's residual and FFN dropouts at
+``cfg.dropout``, drawing keep-masks from its generator (or taking injected
+ones).  Under autograd the attention runs through
+``fused_attention_qkv_diff`` (K1 forward, K2 backward).  Dropout on the
+attention probabilities (``cfg.dropout > 0`` in training) needs the
+probability tensor, which the kernels never form: it raises.
 """
 
 from __future__ import annotations
@@ -25,9 +33,40 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from layoutdm_tpu.configs import BackboneConfig
-from layoutdm_tpu_torch.ops.attention import fused_attention_qkv
+from layoutdm_tpu_torch.ops.attention import (
+    fused_attention_qkv,
+    fused_attention_qkv_diff,
+)
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+EMB_DROPOUT = 0.1  # fixed embedding dropout (JAX `models/nn.py`, `nn.Dropout(0.1)`)
+
+
+class Dropout:
+    """Keep-masks for the denoiser's dropout sites in training mode.
+
+    Drawn from ``generator`` as flax draws them (keep where a uniform draw
+    is below 1 - rate; kept values scaled by 1 / (1 - rate)), on the
+    generator's device and moved to the activation's; or, for tests, taken
+    in call order from ``masks`` (boolean keep-masks).  A site at rate 0
+    draws nothing."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None, masks=None):
+        if (generator is None) == (masks is None):
+            raise ValueError("Dropout takes a generator or masks")
+        self.generator = generator
+        self.masks = None if masks is None else list(masks)
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate == 0.0:
+            return x
+        if self.masks is not None:
+            keep = torch.as_tensor(self.masks.pop(0), device=x.device)
+        else:
+            g = self.generator
+            keep = torch.rand(x.shape, generator=g, device=g.device) < 1.0 - rate
+            keep = keep.to(x.device)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def gelu2(x):
@@ -110,19 +149,29 @@ class AdaLayerNorm(nn.Module):
 
 class SelfAttention(nn.Module):
     """Dense, mask-free multi-head self-attention with a packed qkv
-    projection; the packed slab feeds the K1 kernel directly."""
+    projection; the packed slab feeds the kernels directly: K1 without
+    grad, K1 and K2 through autograd."""
 
-    def __init__(self, d_model: int, nhead: int, dtype=torch.float32):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} not divisible by nhead {nhead}")
-        self.nhead, self.dtype = nhead, dtype
+        self.nhead, self.dropout, self.dtype = nhead, dropout, dtype
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout: Optional[Dropout] = None) -> torch.Tensor:
+        if dropout is not None and self.dropout > 0.0:
+            raise NotImplementedError(
+                "attention-probability dropout (backbone.dropout > 0 in "
+                "training) is not ported yet: ROADMAP Queue 1 item 4"
+            )
         qkv = _linear(x, self.qkv, self.dtype)
-        o = fused_attention_qkv(qkv, self.nhead)
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            o = fused_attention_qkv_diff(qkv, self.nhead)
+        else:
+            o = fused_attention_qkv(qkv, self.nhead)
         return _linear(o, self.out, self.dtype)
 
 
@@ -132,6 +181,7 @@ class Block(nn.Module):
     def __init__(self, cfg: BackboneConfig, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.dropout = cfg.dropout
         self.activation = ACTIVATIONS[cfg.activation]
         tt = cfg.timestep_type
         if tt is None:
@@ -140,12 +190,14 @@ class Block(nn.Module):
             raise NotImplementedError("AdaInsNorm is not ported yet")
         else:
             self.norm1 = AdaLayerNorm(cfg.d_model, cfg.diffusion_step, tt)
-        self.attn = SelfAttention(cfg.d_model, cfg.nhead, dtype)
+        self.attn = SelfAttention(cfg.d_model, cfg.nhead, cfg.dropout, dtype)
         self.linear1 = nn.Linear(cfg.d_model, cfg.dim_feedforward)
         self.linear2 = nn.Linear(cfg.dim_feedforward, cfg.d_model)
         self.norm2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, timestep: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timestep: torch.Tensor,
+                dropout: Optional[Dropout] = None) -> torch.Tensor:
+        drop = dropout or (lambda h, rate: h)
         if isinstance(self.norm1, AdaLayerNorm):
             x = self.norm1(x, timestep)
         else:
@@ -153,11 +205,11 @@ class Block(nn.Module):
         # the trunk is REPLACED by norm1(x) (reference quirk), and the
         # residual stream is carried in the compute dtype
         x = x.to(self.dtype)
-        x = x + self.attn(x)
+        x = x + drop(self.attn(x, dropout), self.dropout)
         h = self.norm2(x.float())
         h = self.activation(_linear(h, self.linear1, self.dtype))
-        h = _linear(h, self.linear2, self.dtype)
-        return x + h
+        h = _linear(drop(h, self.dropout), self.linear2, self.dtype)
+        return x + drop(h, self.dropout)
 
 
 class TransformerEncoder(nn.Module):
@@ -169,9 +221,10 @@ class TransformerEncoder(nn.Module):
             Block(cfg, dtype) for _ in range(cfg.num_layers)
         )
 
-    def forward(self, x: torch.Tensor, timestep: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timestep: torch.Tensor,
+                dropout: Optional[Dropout] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, timestep)
+            x = layer(x, timestep, dropout)
         return x
 
 
@@ -240,10 +293,14 @@ class CategoricalTransformer(nn.Module):
         self.head_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.head = nn.Linear(d, num_classes, bias=False)
 
-    def forward(self, seq: torch.Tensor, timestep: torch.Tensor) -> torch.Tensor:
+    def forward(self, seq: torch.Tensor, timestep: torch.Tensor,
+                dropout: Optional[Dropout] = None) -> torch.Tensor:
+        """Logits; ``dropout`` switches training mode on."""
         h = embed_tokens(self.cat_emb.weight, seq, self.dtype)
-        h = (h + self.pos(seq.shape[1])).to(self.dtype)
-        h = self.backbone(h, timestep)
+        h = h + self.pos(seq.shape[1])
+        if dropout is not None:
+            h = dropout(h, EMB_DROPOUT)
+        h = self.backbone(h.to(self.dtype), timestep, dropout)
         return self.head(self.head_norm(h.float()))
 
     @torch.no_grad()

@@ -1,12 +1,16 @@
-"""Packed-qkv self-attention: the CUDA kernel K1 and its plain twin (port of
-``layoutdm_tpu/ops/attention.py::fused_attention_qkv``).
+"""Packed-qkv self-attention: the CUDA kernels K1 (forward) and K2
+(backward), their plain twins, and the autograd binding (port of
+``layoutdm_tpu/ops/attention.py::fused_attention_qkv``,
+``fused_attention_qkv_bwd`` and the custom VJP ``fused_attention_qkv_diff``).
 
 ``fused_attention_qkv`` takes the denoiser's packed (B, S, 3D) projection
 output, heads as ``[h*hd]`` column blocks of q, k and v, and returns
-(B, S, D).  On a CUDA tensor it launches the hand-written Hopper kernel in
-``csrc/attention_qkv.cu`` (built by ``nvcc`` at first use) or raises; on a
-CPU tensor it runs ``attention_qkv_reference``, the plain PyTorch version
-with the kernel's rounding points.  There is no fallback between the two.
+(B, S, D); ``fused_attention_qkv_bwd`` takes the same slab and the (B, S, D)
+cotangent and returns the packed (B, S, 3D) d(qkv).  On a CUDA tensor each
+launches its hand-written Hopper kernel (``csrc/attention_qkv.cu``,
+``csrc/attention_qkv_bwd.cu``, built by ``nvcc`` at first use) or raises; on
+a CPU tensor each runs its plain PyTorch twin, which has the kernel's
+rounding points.  There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ import torch
 
 from layoutdm_tpu_torch.ops.cuda_build import BuiltLibrary, load_library
 
-# kernel launches made by `fused_attention_qkv` (the CPU path adds nothing)
+# kernel launches made by the wrappers (the CPU path adds nothing); one K2
+# call counts once, though it runs two passes
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,6 +42,12 @@ def _split_dims(qkv: torch.Tensor, num_heads: int):
     return B, S, D, D // num_heads
 
 
+def _heads(qkv: torch.Tensor, num_heads: int):
+    """q, k, v as (B, S, H, hd) views."""
+    B, S, D, hd = _split_dims(qkv, num_heads)
+    return (x.reshape(B, S, num_heads, hd) for x in qkv.split(D, dim=-1))
+
+
 def attention_qkv_reference(
     qkv: torch.Tensor, num_heads: int, scale: float = 0.0
 ) -> torch.Tensor:
@@ -43,16 +55,39 @@ def attention_qkv_reference(
     io dtype, f32 accumulation of p.v, output in the io dtype."""
     B, S, D, hd = _split_dims(qkv, num_heads)
     scale = scale or 1.0 / math.sqrt(hd)
-    q, k, v = (x.reshape(B, S, num_heads, hd) for x in qkv.split(D, dim=-1))
+    q, k, v = _heads(qkv, num_heads)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return o.reshape(B, S, D).to(qkv.dtype)
 
 
+def attention_qkv_bwd_reference(
+    qkv: torch.Tensor, do: torch.Tensor, num_heads: int, scale: float = 0.0
+) -> torch.Tensor:
+    """Plain version of K2, with the TPU kernel's rounding points: f32
+    scores, softmax and accumulation; p rounded to the io dtype before
+    dv = pᵀ·dO; dp = dO·vᵀ from io-dtype operands; ds = p·(dp − rowsum(dp·p))
+    ·scale in f32, rounded to the io dtype before dq = ds·k and dk = dsᵀ·q.
+    Returns the packed (B, S, 3D) d(qkv) in the io dtype."""
+    B, S, D, hd = _split_dims(qkv, num_heads)
+    scale = scale or 1.0 / math.sqrt(hd)
+    io = qkv.dtype
+    q, k, v = (x.float() for x in _heads(qkv, num_heads))
+    g = do.reshape(B, S, num_heads, hd).to(io).float()
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(io).float(), g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    ds = ds.to(io).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return torch.cat([x.reshape(B, S, D) for x in (dq, dk, dv)], dim=-1).to(io)
+
+
 @functools.cache
 def kernel_library() -> BuiltLibrary:
-    """Build (first call) and bind the CUDA kernel."""
+    """Build (first call) and bind the forward kernel K1."""
     built = load_library("attention_qkv", ["attention_qkv.cu"])
     fn = built.lib.attention_qkv_launch
     fn.argtypes = [
@@ -65,6 +100,33 @@ def kernel_library() -> BuiltLibrary:
     return built
 
 
+@functools.cache
+def bwd_kernel_library() -> BuiltLibrary:
+    """Build (first call) and bind the backward kernel K2."""
+    built = load_library("attention_qkv_bwd", ["attention_qkv_bwd.cu"])
+    fn = built.lib.attention_qkv_bwd_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,  # qkv, dout
+        ctypes.c_void_p, ctypes.c_void_p,  # dqkv, stats scratch
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B S H hd
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def _check_kernel_input(qkv: torch.Tensor, hd: int) -> None:
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {qkv.device}")
+    if qkv.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {qkv.dtype}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+
+
 def fused_attention_qkv(
     qkv: torch.Tensor, num_heads: int, scale: float = 0.0
 ) -> torch.Tensor:
@@ -74,14 +136,7 @@ def fused_attention_qkv(
     B, S, D, hd = _split_dims(qkv, num_heads)
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {qkv.dtype}")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
-    if not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
+    _check_kernel_input(qkv, hd)
     scale = scale or 1.0 / math.sqrt(hd)
     fn = kernel_library().lib.attention_qkv_launch
     out = torch.empty((B, S, D), dtype=qkv.dtype, device=qkv.device)
@@ -95,3 +150,62 @@ def fused_attention_qkv(
         raise RuntimeError(f"attention_qkv kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+def fused_attention_qkv_bwd(
+    qkv: torch.Tensor, do: torch.Tensor, num_heads: int, scale: float = 0.0
+) -> torch.Tensor:
+    """d(qkv) of `fused_attention_qkv` for the output cotangent ``do``
+    (B, S, D), same dtype and device as ``qkv``."""
+    global LAUNCHES_BWD
+    B, S, D, hd = _split_dims(qkv, num_heads)
+    if tuple(do.shape) != (B, S, D):
+        raise ValueError(f"do must be {(B, S, D)}, got {tuple(do.shape)}")
+    if qkv.device.type == "cpu" and do.device.type == "cpu":
+        return attention_qkv_bwd_reference(qkv, do, num_heads, scale)
+    _check_kernel_input(qkv, hd)
+    if do.device != qkv.device or do.dtype != qkv.dtype:
+        raise ValueError(
+            f"do ({do.dtype}, {do.device}) must match qkv ({qkv.dtype}, {qkv.device})"
+        )
+    if not do.is_contiguous():
+        raise ValueError("do must be contiguous")
+    scale = scale or 1.0 / math.sqrt(hd)
+    fn = bwd_kernel_library().lib.attention_qkv_bwd_launch
+    dqkv = torch.empty_like(qkv)
+    # per (row, head, query): the softmax's log-normaliser and rowsum(dp·p)
+    stats = torch.empty((B, num_heads, S, 2), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, S, num_heads, hd, float(scale), _DTYPE_CODE[qkv.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention_qkv_bwd kernel launch failed: CUDA error {err}")
+    LAUNCHES_BWD += 1
+    return dqkv
+
+
+class _AttentionQKV(torch.autograd.Function):
+    """K1 forward, K2 backward; the residual is the qkv slab itself, as in
+    the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return fused_attention_qkv(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        do = do.to(qkv.dtype).contiguous()
+        return fused_attention_qkv_bwd(qkv, do, ctx.num_heads, ctx.scale), None, None
+
+
+def fused_attention_qkv_diff(
+    qkv: torch.Tensor, num_heads: int, scale: float = 0.0
+) -> torch.Tensor:
+    """Differentiable `fused_attention_qkv`: its gradient is K2."""
+    return _AttentionQKV.apply(qkv, num_heads, scale)

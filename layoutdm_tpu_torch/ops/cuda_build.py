@@ -41,7 +41,9 @@ class BuiltLibrary:
     log: str  # nvcc's output (ptxas resource usage)
 
 
-_LOCK = threading.Lock()
+# one lock per library, so that two libraries can build at the same time
+_LOCKS_GUARD = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, BuiltLibrary] = {}
 
 
@@ -60,7 +62,9 @@ def find_nvcc() -> str:
 def load_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
     """Compile ``csrc/<sources>`` into one shared library (cached by content)
     and load it.  Raises RuntimeError with nvcc's output if the build fails."""
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LOADED:
             return _LOADED[name]
         paths = [CSRC_DIR / s for s in sources]

@@ -1,7 +1,10 @@
 """Layout-generation HTTP service (port of ``layoutdm_tpu/serve_cli.py``).
 
     python -m layoutdm_tpu_torch.serve_cli job_dir=<dir> port=8700 \
-        [max_batch_size=64] [timestep_ladder=25,100] [device=cuda]
+        [max_batch_size=64] [timestep_ladder=25,100] [device=cuda|cpu]
+
+The device is CUDA unless ``device=cpu`` is given; without CUDA the
+service refuses to start rather than fall back to the CPU.
 
 Endpoints
 ---------
@@ -39,6 +42,7 @@ import torch
 from layoutdm_tpu.configs import SamplingConfig
 from layoutdm_tpu_torch.models.diffusion.sampler import SamplerCond, timestep_ladder
 from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
+from layoutdm_tpu_torch.utils.device import require_device
 
 logger = logging.getLogger(__name__)
 
@@ -388,10 +392,11 @@ def make_handler(service: LayoutService):
     return Handler
 
 
-def main(argv=None):
+def make_server(argv=None) -> Tuple[LayoutService, LayoutHTTPServer]:
+    """Parse ``k=v`` arguments and build the service and its (not yet
+    serving) HTTP server."""
     import argparse
 
-    logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(
         description="serve: layoutdm_tpu_torch.serve_cli job_dir=<dir> [k=v ...]"
     )
@@ -401,13 +406,12 @@ def main(argv=None):
     job_dir = kv.get("job_dir")
     if not job_dir:
         p.error("job_dir=<job directory> is required")
-    port = int(kv.get("port", 8700))
     ladder = tuple(int(t) for t in kv.get("timestep_ladder", "").split(",") if t)
-    device = kv.get("device", "cuda" if torch.cuda.is_available() else "cpu")
+    device = require_device(kv.get("device", "cuda"))
     service = LayoutService(
         job_dir,
         max_batch_size=int(kv.get("max_batch_size", 64)),
-        warm_tasks=tuple(kv.get("warm_tasks", "unconditional").split(",")),
+        warm_tasks=tuple(t for t in kv.get("warm_tasks", "unconditional").split(",") if t),
         timestep_ladder=ladder,
         coalesce_window_ms=float(kv.get("coalesce_window_ms", 2.0)),
         request_timeout_s=float(kv.get("request_timeout_s", 600.0)),
@@ -415,12 +419,20 @@ def main(argv=None):
         device=device,
     )
     server = LayoutHTTPServer(
-        (kv.get("host", "127.0.0.1"), port), make_handler(service)
+        (kv.get("host", "127.0.0.1"), int(kv.get("port", 8700))),
+        make_handler(service),
     )
-    logger.info("listening on :%d", port)
+    return service, server
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    service, server = make_server(argv)
+    logger.info("listening on :%d", server.server_address[1])
     try:
         server.serve_forever()
     finally:
+        server.server_close()
         service.close()
 
 

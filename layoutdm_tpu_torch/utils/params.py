@@ -9,12 +9,14 @@ nested dict of numpy arrays (``cat_emb/embedding``, ``pos/elem_emb``,
 Dense kernels are stored (in, out) by flax and (out, in) by torch.
 
 A job directory holds ``config.json`` (the configs' ``to_dict``) and
-``params.pt`` (the denoiser's state dict).  Reading the JAX package's
-msgpack checkpoints directly waits: the GPU host has no flax.
+``params.pt`` (the denoiser's state dict), each written to a temporary
+name, fsynced and moved into place.  Reading the JAX package's msgpack
+checkpoints directly waits: the GPU host has no flax.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -57,12 +59,35 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def save_job(cfg, state_dict: Mapping[str, torch.Tensor], job_dir: str) -> None:
+def write_atomic(path: str, data: bytes) -> None:
+    """A kill mid-write never leaves a truncated file at ``path``."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def save_torch(obj, path: str) -> None:
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    write_atomic(path, buf.getvalue())
+
+
+def save_config(cfg, job_dir: str) -> None:
     os.makedirs(job_dir, exist_ok=True)
-    with open(os.path.join(job_dir, CONFIG_FILE), "w") as f:
-        json.dump(_configs.to_dict(cfg), f, indent=2)
-    cpu = {k: v.detach().to("cpu") for k, v in state_dict.items()}
-    torch.save(cpu, os.path.join(job_dir, PARAMS_FILE))
+    text = json.dumps(_configs.to_dict(cfg), indent=2)
+    write_atomic(os.path.join(job_dir, CONFIG_FILE), text.encode())
+
+
+def save_params(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
+    save_torch({k: v.detach().to("cpu") for k, v in state_dict.items()}, path)
+
+
+def save_job(cfg, state_dict: Mapping[str, torch.Tensor], job_dir: str) -> None:
+    save_config(cfg, job_dir)
+    save_params(state_dict, os.path.join(job_dir, PARAMS_FILE))
 
 
 def load_job(job_dir: str):

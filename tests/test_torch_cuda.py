@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the hand-written attention kernel against its
-plain version, the denoiser and the per-row noise on the card against the
-CPU.  Every test here is marked ``cuda`` and skips without a card.
+"""The port on a CUDA card: the hand-written attention kernels (K1 forward,
+K2 backward) against their plain versions, the denoiser and the per-row
+noise on the card against the CPU.  Every test here is marked ``cuda`` and skips without a card.
 
 This file imports no jax (of the JAX package only its jax-free configs, as
 the port does), so it also runs on a GPU host without jax:
@@ -17,13 +17,21 @@ from layoutdm_tpu_torch.factory import build_model
 from layoutdm_tpu_torch.models.nn import make_transformer
 from layoutdm_tpu_torch.ops import attention
 from layoutdm_tpu_torch.ops.attention import (
+    attention_qkv_bwd_reference,
     attention_qkv_reference,
     fused_attention_qkv,
+    fused_attention_qkv_bwd,
+    fused_attention_qkv_diff,
 )
 from layoutdm_tpu_torch.ops.samplers import gumbel_noise, row_uniform
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+# K2 against its twin, relative to the largest gradient: f32 differs by
+# summation order only; bf16 by p and ds rounded to bf16 from f32 values
+# that differ in their last bits, and the bf16 output rounding (2**-8)
+BWD_F32_TOL = 1e-5
+BWD_BF16_TOL = 1e-2
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +79,71 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_attention_qkv(torch.zeros(1, 4, 3 * 2 * 129, device=cuda), 2)
     with pytest.raises(ValueError):
         fused_attention_qkv(torch.zeros(1, 48, 4, device=cuda).transpose(1, 2), 2)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,hd,dtype,scale",
+    [
+        (4, 125, 8, 58, torch.float32, 0.0),
+        (4, 125, 8, 58, torch.bfloat16, 0.0),
+        (2, 500, 8, 58, torch.float32, 0.0),
+        (2, 500, 8, 58, torch.bfloat16, 0.0),
+        (3, 1, 2, 128, torch.float32, 0.0),
+        (2, 33, 3, 64, torch.bfloat16, 58 ** -0.5),
+        (1, 70, 1, 5, torch.float32, 0.0),
+    ],
+)
+def test_bwd_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, scale):
+    qkv = torch.as_tensor(_slab(B, S, H, hd)).to(cuda, dtype)
+    do = torch.as_tensor(
+        np.random.RandomState(1).randn(B, S, H * hd).astype(np.float32)
+    ).to(cuda, dtype)
+    before = attention.LAUNCHES_BWD
+    got = fused_attention_qkv_bwd(qkv, do, H, scale=scale)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BWD == before + 1
+    want = attention_qkv_bwd_reference(qkv, do, H, scale=scale)
+    assert got.dtype == dtype and got.shape == qkv.shape
+    tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_on_card_matches_plain_version(cuda, dtype):
+    """Through autograd the forward is K1 and the gradient K2 of the saved
+    slab and the output's cotangent: both against the twins on the card."""
+    B, S, H, hd = 3, 125, 8, 58
+    rs = np.random.RandomState(2)
+    qkv = torch.as_tensor(rs.randn(B, S, 3 * H * hd).astype(np.float32)).to(cuda, dtype)
+    w = torch.as_tensor(rs.randn(H * hd, H * hd).astype(np.float32) * 0.05).to(cuda, dtype)
+    x = qkv.clone().requires_grad_()
+    launches = attention.LAUNCHES, attention.LAUNCHES_BWD
+    o = fused_attention_qkv_diff(x, H)
+    o.retain_grad()
+    (o @ w).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES, attention.LAUNCHES_BWD) == (launches[0] + 1, launches[1] + 1)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(
+        o.detach().float(), attention_qkv_reference(qkv, H).float(), rtol=0, atol=tol
+    )
+    want = attention_qkv_bwd_reference(qkv, o.grad, H).float()
+    tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    err = (x.grad.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    qkv = torch.zeros(1, 4, 24, device=cuda)
+    with pytest.raises(ValueError):
+        fused_attention_qkv_bwd(qkv, torch.zeros(1, 4, 6, device=cuda), 2)
+    with pytest.raises(ValueError):
+        fused_attention_qkv_bwd(qkv, torch.zeros(1, 4, 8, device=cuda, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError):
+        fused_attention_qkv_bwd(qkv, torch.zeros(1, 8, 4, device=cuda).transpose(1, 2), 2)
+    with pytest.raises(ValueError):
+        fused_attention_qkv_bwd(qkv, torch.zeros(1, 4, 8), 2)
 
 
 def test_denoiser_on_card_matches_cpu(cuda):
@@ -126,3 +199,52 @@ def test_sample_with_generator_on_card(cuda, gen_device):
     assert runs[0].device.type == "cuda" and runs[0].shape == (3, model.seq_len)
     assert ((runs[0] >= 0) & (runs[0] < model.num_classes)).all()
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step (loss, K1/K2 backward, clip, AdamW) on the card
+    against the same step on the CPU (plain versions), same weights and
+    injected t, pt and x_t: losses, gradients and updated weights."""
+    from layoutdm_tpu_torch.models.diffusion.loss import diffusion_loss
+    from layoutdm_tpu_torch.train.step import init_train_state, make_optimizer, train_step
+
+    cfg = build_train_config("layoutdm", "synthetic", [
+        "data.bbox_quantization=linear", "dataset.max_seq_length=5",
+        "backbone.d_model=128", "backbone.nhead=2",
+        "backbone.dim_feedforward=64", "backbone.num_layers=2",
+        "model.num_timesteps=10", "backbone.diffusion_step=10",
+    ])
+    rs = np.random.RandomState(4)
+    B = 16
+    n = rs.randint(1, 6, (B, 1))
+    batch = {"label": rs.randint(0, 5, (B, 5)), "bbox": rs.rand(B, 5, 4).astype(np.float32),
+             "mask": np.arange(5)[None] < n}
+    t = torch.as_tensor(rs.randint(0, 10, B))
+    pt = torch.as_tensor(rs.uniform(0.05, 0.2, B).astype(np.float32))
+    states, out = [], []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(2))
+        seq = model.preprocess(batch)["seq"]
+        xt = model.q.corrupt(seq, t.to(dev), torch.Generator().manual_seed(3))
+        state = init_train_state(model, make_optimizer(model.net), 0.5)
+
+        def loss_fn(lt, model=model, seq=seq, xt=xt, dev=dev):
+            return diffusion_loss(
+                model.q, model._predict_start, seq, lt, t=t.to(dev), pt=pt.to(dev), xt=xt
+            )
+
+        launches = attention.LAUNCHES_BWD
+        out.append(train_step(state, None, loss_fn=loss_fn))
+        grads = {k: p.grad.cpu() for k, p in model.net.named_parameters()}
+        states.append((grads, {k: v.cpu() for k, v in model.net.state_dict().items()}))
+    assert attention.LAUNCHES_BWD == launches + 2  # the card's step, 2 layers
+    for k in out[0]:
+        torch.testing.assert_close(out[1][k].cpu(), out[0][k], rtol=1e-4, atol=0)
+    (g_cpu, w_cpu), (g_gpu, w_gpu) = states
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    assert max((g_gpu[k] - g_cpu[k]).abs().max().item() for k in g_cpu) <= 1e-4 * scale
+    # Adam divides each gradient element by its own scale, so elements whose
+    # true gradient is 0 (the key bias) move by float noise; compare the rest
+    for k in w_cpu:
+        live = g_cpu[k].abs() > 1e-3 * scale
+        torch.testing.assert_close(w_gpu[k][live], w_cpu[k][live], rtol=0, atol=1e-5)

@@ -154,7 +154,8 @@ def test_sample_mask_matches_jax_with_injected_scores():
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter without
     pulling in jax (the GPU host has none); of the JAX package it reaches
-    only the jax-free configs and registry."""
+    only the jax-free configs, registry, data modules, train schedulers and
+    utilities (the events writer, the renderer)."""
     pkg = REPO / "layoutdm_tpu_torch"
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
@@ -168,8 +169,12 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'optax')]\n"
         "assert not bad, bad\n"
         "jax_pkg = {m for m in sys.modules if m.split('.')[0] == 'layoutdm_tpu'}\n"
-        "assert jax_pkg <= {'layoutdm_tpu', 'layoutdm_tpu.configs', "
-        "'layoutdm_tpu.registry'}, jax_pkg\n"
+        "allowed = {'layoutdm_tpu', 'layoutdm_tpu.configs', 'layoutdm_tpu.registry', "
+        "'layoutdm_tpu.train', 'layoutdm_tpu.train.schedulers', 'layoutdm_tpu.utils', "
+        "'layoutdm_tpu.utils.tb', 'layoutdm_tpu.utils.visualization'}\n"
+        "bad = {m for m in jax_pkg - allowed if not m.startswith('layoutdm_tpu.data')}\n"
+        "assert not bad, bad\n"
+        "assert 'layoutdm_tpu.train.schedulers' in jax_pkg, jax_pkg\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -26,7 +26,9 @@ from layoutdm_tpu_torch.serve_cli import (
     LayoutHTTPServer,
     LayoutService,
     _row_seeds,
+    main,
     make_handler,
+    make_server,
 )
 from layoutdm_tpu_torch.utils.params import load_job, params_from_flax, save_job
 
@@ -64,6 +66,23 @@ def test_job_roundtrip_keeps_config(jobs):
         json.dumps(to_dict(port_cfg))
     )
     assert all(v.dtype == torch.float32 for v in sd.values())
+
+
+def test_cli_refuses_a_missing_cuda_device_and_serves_on_cpu_when_asked(jobs):
+    """The service runs on CUDA unless told device=cpu: on a host without
+    CUDA it refuses to start instead of falling back to the CPU."""
+    _, port_dir, _ = jobs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([f"job_dir={port_dir}", "port=0"])
+    svc, httpd = make_server([f"job_dir={port_dir}", "port=0", "device=cpu",
+                              "max_batch_size=2", "warm_tasks="])
+    try:
+        assert svc.device == torch.device("cpu")
+        assert svc.model.net.head.weight.device.type == "cpu"
+        assert httpd.server_address[1] > 0
+    finally:
+        httpd.server_close()
+        svc.close()
 
 
 def test_row_seeds_identical():
