@@ -2,19 +2,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving and training paths (``layoutdm_tpu_torch``) at
-the flagship LayoutDM width (Rico25: vocab 155, 125 tokens, d_model 464,
-8 heads of 58, FFN 1856, 4 layers; random weights from a seed) and checks
-them:
+Drives the port's serving and training paths (``layoutdm_tpu_torch``) and
+its fused-denoiser serving path at the flagship LayoutDM width (Rico25:
+vocab 155, 125 tokens, d_model 464, 8 heads of 58, FFN 1856, 4 layers;
+random weights from a seed) and checks them:
 
-1. device       card name, power limit, nvcc version, both kernels built
-                in parallel and their build times;
+1. device       card name, power limit, nvcc version, the four kernels
+                built in parallel, their build times and ptxas reports;
 2. kernel       the CUDA attention kernel (K1) against its plain PyTorch
                 version at the serving shapes, errors and times;
 3. train_kernel the CUDA attention backward (K2) against its plain version
                 at the training shapes, errors and times;
+3a. ffn_kernel  the LayerNorm-FFN-residual kernel (K3) against its plain
+                version, float32 and bfloat16, three activations, errors
+                and times beside the unfused path;
+3b. block_kernel the attention-block kernel (K4) against its plain version
+                at S=125 and 500, errors and times beside the unfused path;
 4. denoiser     flagship-width logits and posteriors with the kernel against
                 the same weights with the plain attention, float32;
+4a. fused_denoiser the same with the fused path (K4 + K3) against the
+                unfused path (K1), float32;
 5. train        (a) one float32 step's parameter gradients through K1 and
                 K2 against the plain versions, same weights and noise;
                 (b) bfloat16 train steps at B=1024: samples/s, peak memory,
@@ -27,9 +34,12 @@ them:
                 refinement requests, seed determinism, request coalescing,
                 the kernel's launch count over the service's runs, and
                 batch-1 latency at T=25 and T=100;
-8. throughput   unconditional sampling at B=1024, T=100, bfloat16.
+8. throughput   unconditional sampling at B=1024, T=100, bfloat16;
+9. fused_serve  the serve phase on the fused path: K3 and K4 launches =
+                layers x chain steps and no K1 launch;
+10. fused_throughput the throughput phase on the fused path.
 
-Each phase prints one JSON line; then a ``{"kernels": [...]}`` line, the
+Each phase prints one JSON line and its seconds; then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0) and
 no result line is printed.  Without CUDA it exits with code 2.
@@ -54,6 +64,11 @@ import torch
 F32_TOL = 1e-4  # kernel vs plain, float32 (summation order only)
 BF16_TOL = 2e-2  # kernel vs plain, bfloat16 (p rounded at other points)
 DENOISER_TOL = 1e-3  # 4 layers of float32 GEMMs around the kernel
+# K3 and K4 against their plain versions in bfloat16, relative to the
+# largest output (the residual x included): sums taken in another order
+# flip roundings of the hidden and of qkv, and the output's own rounding
+# step is 2**-8 of its size; two steps of the largest output are allowed
+FUSED_BF16_REL_TOL = 2 ** -7
 # K2 against its plain version, relative to the largest gradient: float32
 # differs by summation order; bfloat16 by p and ds rounded to bf16 from f32
 # values that differ in their last bits, and the bf16 output (2**-8)
@@ -69,7 +84,28 @@ KERNELS = {
                       "layoutdm_tpu/ops/attention.py:216"),
     "attention_qkv_bwd": ("layoutdm_tpu_torch/csrc/attention_qkv_bwd.cu",
                           "layoutdm_tpu/ops/attention.py:465"),
+    "ln_ffn_residual": ("layoutdm_tpu_torch/csrc/ffn.cu",
+                        "layoutdm_tpu/ops/ffn.py:81"),
+    "attention_block": ("layoutdm_tpu_torch/csrc/attention_block.cu",
+                        "layoutdm_tpu/ops/attention.py:142"),
 }
+# H100 SXM published peaks (dense), for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the flagship widths, and the (batch, sequence) shapes every kernel is
+# timed at in bfloat16; the kernels line reports the first
+FLAG_H, FLAG_HD, FLAG_F = 8, 58, 1856
+TIMED_SHAPES = (("b1024_s125_bf16", 1024, 125), ("b256_s500_bf16", 256, 500))
+
+
+def bound(nbytes: float, flops: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the dtype's peak, whichever is larger."""
+    mem_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(mem_ms, op_ms),
+            "bound_by": "bytes" if mem_ms >= op_ms else "operations",
+            "bytes": nbytes, "flops": flops}
 
 
 def emit(obj) -> None:
@@ -92,10 +128,30 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def flagship_config(dtype: str):
-    from layoutdm_tpu.configs import build_train_config
+def sdpa_views(qkv: torch.Tensor, num_heads: int):
+    """q, k, v of a packed (B, S, 3D) slab as (B, H, S, hd) views, the
+    layout ``F.scaled_dot_product_attention`` takes."""
+    B, S, D3 = qkv.shape
+    hd = D3 // 3 // num_heads
+    return qkv.view(B, S, 3, num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
 
-    # the JAX package's config dataclasses (they import no jax); linear
+
+def device_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches (which backend
+    a library call picked)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:100] for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
+def flagship_config(dtype: str):
+    from layoutdm_tpu_torch.configs import build_train_config
+
+    # the port's config dataclasses (a copy of the JAX package's); linear
     # quantization: the repo carries no Rico25 clustering weights
     return build_train_config(
         "layoutdm", "rico25",
@@ -109,7 +165,7 @@ def flagship_config(dtype: str):
 
 
 def phase_device() -> dict:
-    from layoutdm_tpu_torch.ops import attention
+    from layoutdm_tpu_torch.ops import attention, ffn
     from layoutdm_tpu_torch.ops.cuda_build import find_nvcc
 
     smi = subprocess.run(
@@ -120,12 +176,16 @@ def phase_device() -> dict:
         [find_nvcc(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
     # one nvcc per kernel source, started together
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(attention.kernel_library),
-                  pool.submit(attention.bwd_kernel_library)]
-        fwd, bwd = (b.result() for b in builds)
-    for built in (fwd, bwd):
-        print(built.log, file=sys.stderr)  # ptxas registers / smem / spills
+    libs = {"attention_qkv": attention.kernel_library,
+            "attention_qkv_bwd": attention.bwd_kernel_library,
+            "ln_ffn_residual": ffn.kernel_library,
+            "attention_block": attention.block_kernel_library}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(build) for name, build in libs.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    for name, lib in built.items():
+        # ptxas registers / shared memory / spills
+        print(f"== {name}\n{lib.log}", file=sys.stderr)
     out = {
         "phase": "device",
         "name": torch.cuda.get_device_name(0),
@@ -134,8 +194,7 @@ def phase_device() -> dict:
         "torch": torch.__version__,
         "torch_cuda": torch.version.cuda,
         "nvcc": nvcc,
-        "kernel_build_s": {"attention_qkv": fwd.build_seconds,
-                           "attention_qkv_bwd": bwd.build_seconds},
+        "kernel_build_s": {name: lib.build_seconds for name, lib in built.items()},
     }
     emit(out)
     return out
@@ -171,14 +230,159 @@ def phase_kernel(device="cuda") -> dict:
             raise AssertionError(f"kernel case {name}: max abs err {err} > {tol}")
         errs[name] = err
 
+    import torch.nn.functional as F
+
     times = {}
-    for name, B, S in (("b1024_s125_bf16", 1024, 125), ("b256_s500_bf16", 256, 500)):
+    for name, B, S in TIMED_SHAPES:
         qkv = slab(B, S, 8, 58, torch.bfloat16)
+        q, k, v = sdpa_views(qkv, 8)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
         times[name] = {
             "kernel_ms": cuda_ms(lambda: fused_attention_qkv(qkv, 8)),
             "plain_ms": cuda_ms(lambda: attention_qkv_reference(qkv, 8)),
+            # the library call: scaled_dot_product_attention's forward
+            "library_ms": cuda_ms(sdpa),
+            "library_kernels": device_kernels(sdpa),
+            # read the (B, S, 3D) slab, write (B, S, D); q·kᵀ and p·v
+            **bound(B * S * 4 * 464 * 2, 4 * B * S * S * 464),
         }
     out = {"phase": "kernel", "max_abs_err": errs, "times": times}
+    emit(out)
+    return out
+
+
+def _randn(g, shape, scale=1.0, offset=0.0):
+    return torch.randn(shape, generator=g) * scale + offset
+
+
+def _check_fused(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error of a fused kernel against its plain version, held to
+    F32_TOL in float32 and FUSED_BF16_REL_TOL of the largest output in
+    bfloat16."""
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (F32_TOL if want.dtype == torch.float32
+           else FUSED_BF16_REL_TOL * max(1.0, want.float().abs().max().item()))
+    if not (got.shape == want.shape and got.dtype == want.dtype and np.isfinite(err)
+            and err <= tol):
+        raise AssertionError(f"{what}: max abs err {err} > {tol}")
+    return err
+
+
+def phase_ffn_kernel(device="cuda") -> dict:
+    """K3 against its plain version at the flagship width; times beside
+    the port's unfused FFN (F.layer_norm, two F.linear, the activation
+    and the residual add), the closest library path."""
+    import torch.nn.functional as F
+
+    from layoutdm_tpu_torch.ops.ffn import (
+        fused_ln_ffn_residual,
+        ln_ffn_residual_reference,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    D, Fd = FLAG_H * FLAG_HD, FLAG_F
+
+    def params(dtype):
+        p = {"ln_scale": _randn(g, (D,), 0.1, 1.0), "ln_bias": _randn(g, (D,), 0.1),
+             "w1": _randn(g, (Fd, D), D ** -0.5), "b1": _randn(g, (Fd,), 0.1),
+             "w2": _randn(g, (D, Fd), Fd ** -0.5), "b2": _randn(g, (D,), 0.1)}
+        return {k: v.to(device, torch.float32 if k.startswith("ln") else dtype)
+                for k, v in p.items()}
+
+    cases = [(f"s125_{dn}_{act}", (8, 125), dt, act)
+             for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
+             for act in ("relu", "gelu", "gelu2")]
+    cases += [("m21_bf16_relu", (21,), torch.bfloat16, "relu"),
+              ("m21_f32_gelu2", (21,), torch.float32, "gelu2")]
+    errs = {}
+    for name, lead, dtype, act in cases:
+        p = params(dtype)
+        x = _randn(g, (*lead, D), 0.5).to(device, dtype)
+        got = fused_ln_ffn_residual(x, **p, activation=act)
+        torch.cuda.synchronize()
+        want = ln_ffn_residual_reference(x, **p, activation=act)
+        errs[name] = _check_fused(f"K3 case {name}", got, want)
+
+    times = {}
+    for name, B, S in TIMED_SHAPES:
+        p = params(torch.bfloat16)
+        x = _randn(g, (B, S, D), 0.5).to(device, torch.bfloat16)
+
+        def unfused():
+            h = F.layer_norm(x.float(), (D,), p["ln_scale"], p["ln_bias"], 1e-6)
+            h = F.relu(F.linear(h.to(x.dtype), p["w1"], p["b1"]))
+            return x + F.linear(h, p["w2"], p["b2"])
+
+        M = B * S
+        times[name] = {
+            "kernel_ms": cuda_ms(lambda: fused_ln_ffn_residual(x, **p, activation="relu")),
+            "plain_ms": cuda_ms(lambda: ln_ffn_residual_reference(x, **p, activation="relu")),
+            "library_ms": cuda_ms(unfused),  # the unfused path, no single call
+            # read x and both weights once, write out; two products
+            **bound(2 * M * D * 2 + 2 * D * Fd * 2 + (Fd + D) * 2 + 2 * D * 4,
+                    4 * M * D * Fd),
+        }
+        del x, p
+        torch.cuda.empty_cache()
+    out = {"phase": "ffn_kernel", "max_abs_err": errs, "times": times}
+    emit(out)
+    return out
+
+
+def phase_block_kernel(device="cuda") -> dict:
+    """K4 against its plain version at S=125 and 500; times beside the
+    port's unfused attention (F.linear, K1, F.linear, the residual add)."""
+    import torch.nn.functional as F
+
+    from layoutdm_tpu_torch.ops.attention import (
+        attention_block_reference,
+        fused_attention_block,
+        fused_attention_qkv,
+    )
+
+    g = torch.Generator().manual_seed(13)
+    H, D = FLAG_H, FLAG_H * FLAG_HD
+
+    def params(dtype):
+        p = {"w_qkv": _randn(g, (3 * D, D), D ** -0.5), "b_qkv": _randn(g, (3 * D,), 0.1),
+             "w_out": _randn(g, (D, D), D ** -0.5), "b_out": _randn(g, (D,), 0.1)}
+        return {k: v.to(device, dtype) for k, v in p.items()}
+
+    cases = [("s125_f32", 8, 125, torch.float32),
+             ("s125_bf16", 64, 125, torch.bfloat16),
+             ("s500_bf16", 8, 500, torch.bfloat16),
+             ("s500_f32", 2, 500, torch.float32)]
+    errs = {}
+    for name, B, S, dtype in cases:
+        p = params(dtype)
+        x = _randn(g, (B, S, D), 0.5).to(device, dtype)
+        got = fused_attention_block(x, **p, num_heads=H)
+        torch.cuda.synchronize()
+        want = attention_block_reference(x, **p, num_heads=H)
+        errs[name] = _check_fused(f"K4 case {name}", got, want)
+
+    times = {}
+    for name, B, S in TIMED_SHAPES:
+        p = params(torch.bfloat16)
+        x = _randn(g, (B, S, D), 0.5).to(device, torch.bfloat16)
+
+        def unfused():
+            o = fused_attention_qkv(F.linear(x, p["w_qkv"], p["b_qkv"]), H)
+            return x + F.linear(o, p["w_out"], p["b_out"])
+
+        times[name] = {
+            "kernel_ms": cuda_ms(lambda: fused_attention_block(x, **p, num_heads=H)),
+            "plain_ms": cuda_ms(lambda: attention_block_reference(x, **p, num_heads=H)),
+            "library_ms": cuda_ms(unfused),  # the unfused path on K1, no single call
+            # read x and both weights once, write out; the projections,
+            # q·kᵀ and p·v
+            **bound(2 * B * S * D * 2 + 4 * D * D * 2 + 4 * D * 2,
+                    B * (8 * S * D * D + 4 * S * S * D)),
+            "kv_projection_passes": -(-S // 64),  # query tiles of 64 per row
+        }
+        del x, p
+        torch.cuda.empty_cache()
+    out = {"phase": "block_kernel", "max_abs_err": errs, "times": times}
     emit(out)
     return out
 
@@ -227,6 +431,56 @@ def phase_denoiser(device="cuda", batch=8, cfg=None) -> dict:
     return out
 
 
+def phase_fused_denoiser(device="cuda", batch=8, cfg=None) -> dict:
+    """Same weights, the fused path (K4 + K3) against the unfused path
+    (K1, unfused FFN), float32."""
+    from layoutdm_tpu_torch.factory import build_model, build_tokenizer
+    from layoutdm_tpu_torch.ops import attention, ffn
+
+    cfg = cfg or flagship_config("float32")
+    tok = build_tokenizer(cfg)
+    fused = build_model(cfg, tok, device, generator=torch.Generator().manual_seed(1),
+                        fused_block=True, fused_ffn=True)
+    unfused = build_model(cfg, tok, device, fused_block=False, fused_ffn=False)
+    unfused.net.load_state_dict(fused.net.state_dict())
+    layers = fused.backbone_cfg.num_layers
+
+    rs = np.random.RandomState(2)
+    ids = torch.as_tensor(
+        rs.randint(0, fused.num_classes, (batch, fused.seq_len)), device=device
+    )
+    with torch.inference_mode():
+        T = fused.q.num_timesteps
+        t = torch.full((batch,), T // 2, device=device)
+        attention.LAUNCHES = attention.LAUNCHES_BLOCK = ffn.LAUNCHES_FFN = 0
+        got = fused.net(ids, t)
+        launches = (attention.LAUNCHES, attention.LAUNCHES_BLOCK, ffn.LAUNCHES_FFN)
+        if launches != (0, layers, layers):
+            raise AssertionError(f"fused forward launched K1/K4/K3 {launches}")
+        want = unfused.net(ids, t)
+        logit_err = (got - want).abs().max().item()
+        if not (torch.isfinite(got).all() and logit_err <= DENOISER_TOL):
+            raise AssertionError(f"fused denoiser logits max abs err {logit_err}")
+        post_err = {}
+        for step in (T - 1, 3 * T // 4, T // 2, T // 4, 0):  # 99 75 50 25 0
+            t = torch.full((batch,), step, device=device)
+            pg = fused.q.q_posterior_ids(fused._predict_start(ids, t), ids, t)
+            pw = unfused.q.q_posterior_ids(unfused._predict_start(ids, t), ids, t)
+            post_err[step] = (pg - pw).abs().max().item()
+            if not (torch.isfinite(pg).all() and post_err[step] <= DENOISER_TOL):
+                raise AssertionError(f"fused posterior t={step} max abs err {post_err[step]}")
+    out = {
+        "phase": "fused_denoiser",
+        "path": fused.denoiser_path,
+        "d_model": fused.backbone_cfg.d_model,
+        "num_layers": layers,
+        "logits_max_abs_err": logit_err,
+        "posterior_max_abs_err": post_err,
+    }
+    emit(out)
+    return out
+
+
 def phase_train_kernel(device="cuda") -> dict:
     from layoutdm_tpu_torch.ops.attention import (
         attention_qkv_bwd_reference,
@@ -262,14 +516,26 @@ def phase_train_kernel(device="cuda") -> dict:
             )
         errs[name] = err
 
+    import torch.nn.functional as F
+
     times = {}
-    for name, B, S in (("b1024_s125_bf16", 1024, 125), ("b256_s500_bf16", 256, 500)):
+    for name, B, S in TIMED_SHAPES:
         qkv, do = inputs(B, S, 8, 58, torch.bfloat16)
+        # the library call: scaled_dot_product_attention's backward, taken
+        # again and again from one forward graph
+        leaf = qkv.clone().requires_grad_()
+        o = F.scaled_dot_product_attention(*sdpa_views(leaf, 8))
+        cot = do.view(B, S, 8, 58).transpose(1, 2)
+        sdpa_bwd = lambda: torch.autograd.grad(o, leaf, cot, retain_graph=True)
         times[name] = {
             "kernel_ms": cuda_ms(lambda: fused_attention_qkv_bwd(qkv, do, 8)),
             "plain_ms": cuda_ms(lambda: attention_qkv_bwd_reference(qkv, do, 8)),
+            "library_ms": cuda_ms(sdpa_bwd),
+            "library_kernels": device_kernels(sdpa_bwd),
+            # read the slab and dO, write d(qkv); s again, dv, dp, dq, dk
+            **bound(B * S * 7 * 464 * 2, 10 * B * S * S * 464),
         }
-        del qkv, do
+        del qkv, do, leaf, o, cot
         torch.cuda.empty_cache()
     out = {"phase": "train_kernel", "max_abs_err": errs, "rel_err": rel, "times": times}
     emit(out)
@@ -461,7 +727,7 @@ def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
 
 
 def phase_train_cli(device="cuda", overrides=()) -> dict:
-    from layoutdm_tpu.configs import build_train_config
+    from layoutdm_tpu_torch.configs import build_train_config
     from layoutdm_tpu_torch.ops import attention
     from layoutdm_tpu_torch.serve_cli import LayoutService
     from layoutdm_tpu_torch.train.loop import train
@@ -527,9 +793,11 @@ def _check_layouts(resp, n, num_labels, labels=None):
 
 
 def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
-                n_latency=10, smi="") -> dict:
+                n_latency=10, smi="", fused=False) -> dict:
+    """The HTTP service; ``fused`` serves on the fused denoiser path (K4 +
+    K3 in place of K1 and the unfused FFN)."""
     from layoutdm_tpu_torch.factory import build_model, build_tokenizer
-    from layoutdm_tpu_torch.ops import attention
+    from layoutdm_tpu_torch.ops import attention, ffn
     from layoutdm_tpu_torch.serve_cli import (
         LayoutHTTPServer,
         LayoutService,
@@ -551,14 +819,15 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
         save_job(cfg, model.net.state_dict(), job_dir)
         del model
         service = LayoutService(
-            job_dir, max_batch_size=max_batch, timestep_ladder=ladder, device=device
+            job_dir, max_batch_size=max_batch, timestep_ladder=ladder, device=device,
+            fused_block=fused, fused_ffn=fused,
         )
     httpd = LayoutHTTPServer(("127.0.0.1", 0), make_handler(service))
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
-        attention.LAUNCHES = 0
+        attention.LAUNCHES = attention.LAUNCHES_BLOCK = ffn.LAUNCHES_FFN = 0
         steps0, runs0 = service.steps, service.runs
 
         r = _post(url, {"task": "unconditional", "batch_size": 1, "seed": 1,
@@ -618,23 +887,29 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
             latency[f"T{T}_p50_ms"] = statistics.median(ms)
 
         launches = attention.LAUNCHES
+        block_launches, ffn_launches = attention.LAUNCHES_BLOCK, ffn.LAUNCHES_FFN
         steps = service.steps - steps0
         expected = cfg.backbone.num_layers * steps
-        if launches != expected or launches == 0:
+        want = (0, expected, expected) if fused else (expected, 0, 0)
+        if (launches, block_launches, ffn_launches) != want or expected == 0:
             raise AssertionError(
-                f"kernel launches {launches} != num_layers x steps = {expected}"
+                f"K1/K4/K3 launches {(launches, block_launches, ffn_launches)} != {want} "
+                f"(num_layers x steps = {expected})"
             )
     finally:
         httpd.shutdown()
         httpd.server_close()
         service.close()
     out = {
-        "phase": "serve",
+        "phase": "fused_serve" if fused else "serve",
+        "path": service.model.denoiser_path,
         "requests_ok": True,
         "chain_runs": service.runs - runs0,
         "coalesced_burst_runs": burst_runs,
         "chain_steps": steps,
         "kernel_launches": launches,
+        "block_launches": block_launches,
+        "ffn_launches": ffn_launches,
         "batch1_latency": latency,
         "max_batch_size": max_batch,
         "nvidia_smi": smi,
@@ -643,11 +918,12 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
     return out
 
 
-def phase_throughput(device="cuda", batch=1024, cfg=None, smi="") -> dict:
+def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", fused=False) -> dict:
     from layoutdm_tpu_torch.factory import build_model
 
     cfg = cfg or flagship_config("bfloat16")
-    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(4))
+    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(4),
+                        fused_block=fused, fused_ffn=fused)
     seeds = torch.arange(batch, dtype=torch.int64)
     model.sample(seeds, batch, num_timesteps_eval=5)  # warm-up
     torch.cuda.synchronize()
@@ -659,7 +935,8 @@ def phase_throughput(device="cuda", batch=1024, cfg=None, smi="") -> dict:
             and torch.isfinite(out["bbox"]).all()):
         raise AssertionError("throughput run produced malformed layouts")
     res = {
-        "phase": "throughput",
+        "phase": "fused_throughput" if fused else "throughput",
+        "path": model.denoiser_path,
         "batch": batch,
         "num_timesteps": model.q.num_timesteps,
         "seconds": sec,
@@ -677,19 +954,34 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    dev = phase_device()
+    def run(phase, **kw):
+        t0 = time.perf_counter()
+        out = phase(**kw)
+        emit({"phase_seconds": out["phase"], "seconds": time.perf_counter() - t0})
+        return out
+
+    dev = run(phase_device)
     smi = dev["nvidia_smi"]
-    kern = phase_kernel()
-    bwd = phase_train_kernel()
-    phase_denoiser()
-    tr = phase_train(smi=smi)
-    phase_train_cli()
-    serve = phase_serve(smi=smi)
-    phase_throughput(smi=smi)
+    kern = run(phase_kernel)
+    bwd = run(phase_train_kernel)
+    ffn_k = run(phase_ffn_kernel)
+    block_k = run(phase_block_kernel)
+    run(phase_denoiser)
+    run(phase_fused_denoiser)
+    tr = run(phase_train, smi=smi)
+    run(phase_train_cli)
+    serve = run(phase_serve, smi=smi)
+    run(phase_throughput, smi=smi)
+    fused_serve = run(phase_serve, smi=smi, fused=True)
+    run(phase_throughput, smi=smi, fused=True)
 
     rows = []
-    for name, phase, launches in (("attention_qkv", kern, serve["kernel_launches"]),
-                                  ("attention_qkv_bwd", bwd, tr["launches_bwd"])):
+    for name, phase, launches in (
+        ("attention_qkv", kern, serve["kernel_launches"]),
+        ("attention_qkv_bwd", bwd, tr["launches_bwd"]),
+        ("ln_ffn_residual", ffn_k, fused_serve["ffn_launches"]),
+        ("attention_block", block_k, fused_serve["block_launches"]),
+    ):
         t = phase["times"]["b1024_s125_bf16"]
         source, replaces = KERNELS[name]
         rows.append({
@@ -701,6 +993,9 @@ def main() -> int:
             "max_abs_err": max(phase["max_abs_err"].values()),
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
         })
     emit({"kernels": rows})
     print(dev["nvidia_smi"])

@@ -9,8 +9,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from layoutdm_tpu.configs import TrainConfig
-from layoutdm_tpu.data.datasets import LayoutData, load_dataset
+from layoutdm_tpu_torch.configs import TrainConfig
+from layoutdm_tpu_torch.data.datasets import LayoutData, load_dataset
 from layoutdm_tpu_torch.tokenizer.bbox import (
     VAR_NAMES,
     BboxTokenizer,
@@ -18,6 +18,7 @@ from layoutdm_tpu_torch.tokenizer.bbox import (
 )
 from layoutdm_tpu_torch.tokenizer.clustering import fit_coordinate_clusters
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
+from layoutdm_tpu_torch.utils.device import require_device
 
 # baseline-zoo model names and the port that will bring them
 _LATER = {
@@ -82,19 +83,30 @@ def build_tokenizer(
 
 
 def build_model(
-    cfg: TrainConfig, tokenizer=None, device="cpu",
+    cfg: TrainConfig, tokenizer=None, device="cuda",
     generator: Optional[torch.Generator] = None,
+    fused_block: Optional[bool] = None, fused_ffn: Optional[bool] = None,
 ):
+    """The model of ``cfg`` on ``device`` (CUDA unless asked for the CPU;
+    raises when CUDA is missing).  ``fused_block`` / ``fused_ffn`` select the
+    fused denoiser path (K4 / K3) for inference; each defaults to the JAX
+    package's own switch, ``LAYOUTDM_TPU_FUSED_BLOCK=1`` /
+    ``LAYOUTDM_TPU_FUSED_FFN=1`` in the environment."""
+    device = require_device(device)
     if tokenizer is None:
         tokenizer = build_tokenizer(cfg)
     name = cfg.model.name
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else torch.float32
+    if fused_block is None:
+        fused_block = os.environ.get("LAYOUTDM_TPU_FUSED_BLOCK") == "1"
+    if fused_ffn is None:
+        fused_ffn = os.environ.get("LAYOUTDM_TPU_FUSED_FFN") == "1"
     if name == "layoutdm":
         from layoutdm_tpu_torch.models.layoutdm import LayoutDM
 
         return LayoutDM(
             cfg.backbone, tokenizer, cfg.model, dtype=dtype, device=device,
-            generator=generator,
+            generator=generator, fused_block=fused_block, fused_ffn=fused_ffn,
         )
     if name in _LATER:
         raise KeyError(f"model {name!r} is not ported yet; it comes with {_LATER[name]}")

@@ -43,7 +43,8 @@ class ConstrainedQ:
         att_T: float = 0.000009,
         ctt_1: float = 0.000009,
         ctt_T: float = 0.99999,
-        device="cpu",
+        *,
+        device,
     ):
         self.tokenizer = tokenizer
         self.converter = Converter.build(tokenizer)

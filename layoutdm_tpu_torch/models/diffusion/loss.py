@@ -28,7 +28,7 @@ class LtState:
     count: torch.Tensor  # (T,) float32
 
     @classmethod
-    def init(cls, num_timesteps: int, device="cpu") -> "LtState":
+    def init(cls, num_timesteps: int, device) -> "LtState":
         z = torch.zeros((num_timesteps,), dtype=torch.float32, device=device)
         return cls(history=z, count=z.clone())
 

@@ -22,7 +22,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from layoutdm_tpu.configs import SamplingConfig
+from layoutdm_tpu_torch.configs import SamplingConfig
 from layoutdm_tpu_torch.ops.log_math import LOG_EPS, log_onehot
 from layoutdm_tpu_torch.ops.samplers import (
     gumbel_noise,
@@ -48,7 +48,7 @@ class SamplerCond:
     TENSORS = ("seq", "strong_mask", "weak_logits", "weak_mask", "pad_suppress")
 
     @classmethod
-    def empty(cls, batch_size: int, seq_len: int, device="cpu"):
+    def empty(cls, batch_size: int, seq_len: int, device):
         B, S = batch_size, seq_len
         return cls(
             seq=torch.zeros((B, S), dtype=torch.int64, device=device),

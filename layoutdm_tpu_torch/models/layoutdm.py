@@ -3,6 +3,10 @@
 `models/layoutdm.py:26-126`).  Backbone widths shrink by 29/32 for
 parameter parity with the baselines (`models/layoutdm.py:54`).
 
+The model lives on CUDA unless given ``device="cpu"``.  ``fused_block`` /
+``fused_ffn`` put the denoiser's inference on the fused kernels K4 / K3
+(``models.nn.Block``); training keeps the unfused path.
+
 Ported: ``q_type="constrained"`` with the flattened transformer.  The
 vanilla Q and the aggregated transformer come with later ports and raise
 ``NotImplementedError`` here.
@@ -14,7 +18,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from layoutdm_tpu.configs import BackboneConfig, ModelConfig, SamplingConfig
+from layoutdm_tpu_torch.configs import BackboneConfig, ModelConfig, SamplingConfig
 from layoutdm_tpu_torch.models.diffusion.constrained import ConstrainedQ
 from layoutdm_tpu_torch.models.diffusion.loss import LtState, diffusion_loss
 from layoutdm_tpu_torch.models.diffusion.sampler import (
@@ -24,6 +28,7 @@ from layoutdm_tpu_torch.models.diffusion.sampler import (
 )
 from layoutdm_tpu_torch.models.nn import Dropout, make_transformer
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
+from layoutdm_tpu_torch.utils.device import require_device
 
 
 class LayoutDM:
@@ -33,8 +38,10 @@ class LayoutDM:
         tokenizer: LayoutSequenceTokenizer,
         model_cfg: Optional[ModelConfig] = None,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
         generator: Optional[torch.Generator] = None,
+        fused_block: bool = False,
+        fused_ffn: bool = False,
     ):
         cfg = model_cfg or ModelConfig()
         if cfg.q_type != "constrained":
@@ -49,7 +56,7 @@ class LayoutDM:
 
         self.tokenizer = tokenizer
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.seq_len = tokenizer.max_token_length
         self.num_classes = tokenizer.N_total
         self.q = ConstrainedQ(
@@ -65,8 +72,18 @@ class LayoutDM:
             pos_emb=cfg.pos_emb,
             n_attr_per_elem=tokenizer.N_var_per_element,
             dtype=dtype,
+            fused_block=fused_block,
+            fused_ffn=fused_ffn,
         )
         self._predict_start = make_predict_start(self.net, self.num_classes)
+
+    @property
+    def denoiser_path(self) -> str:
+        """The kernels the denoiser's inference runs."""
+        block = self.net.backbone.layers[0]
+        attn = "fused attention block (K4)" if block.fused_block else "attention (K1)"
+        ffn = "fused LN-FFN-residual (K3)" if block.fused_ffn else "unfused FFN"
+        return f"{attn} + {ffn}"
 
     # -- training -----------------------------------------------------------
     def init_state(self) -> LtState:

@@ -21,6 +21,14 @@ ones).  Under autograd the attention runs through
 ``fused_attention_qkv_diff`` (K1 forward, K2 backward).  Dropout on the
 attention probabilities (``cfg.dropout > 0`` in training) needs the
 probability tensor, which the kernels never form: it raises.
+
+The fused denoiser path (``fused_block`` / ``fused_ffn``, the JAX
+package's ``LAYOUTDM_TPU_FUSED_BLOCK`` / ``LAYOUTDM_TPU_FUSED_FFN``) has the
+JAX ``Block``'s structure: norm1, then K4 (qkv projection, attention, out
+projection and the residual in one kernel), then K3 (norm2, linear1,
+activation, linear2 and the residual).  It runs only where the JAX gates
+admit it: no dropout, no autograd, and shapes the kernels take; training
+keeps K1/K2 and the unfused FFN.
 """
 
 from __future__ import annotations
@@ -32,10 +40,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from layoutdm_tpu.configs import BackboneConfig
+from layoutdm_tpu_torch.configs import BackboneConfig
 from layoutdm_tpu_torch.ops.attention import (
+    can_use_fused_block,
+    fused_attention_block,
     fused_attention_qkv,
     fused_attention_qkv_diff,
+)
+from layoutdm_tpu_torch.ops.ffn import (
+    ACTIVATIONS,
+    can_use_fused_ffn,
+    fused_ln_ffn_residual,
 )
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -67,17 +82,6 @@ class Dropout:
             keep = torch.rand(x.shape, generator=g, device=g.device) < 1.0 - rate
             keep = keep.to(x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-def gelu2(x):
-    return x * torch.sigmoid(1.702 * x)
-
-
-ACTIVATIONS = {
-    "relu": F.relu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu default
-    "gelu2": gelu2,
-}
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -161,7 +165,14 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor, dropout: Optional[Dropout] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout: Optional[Dropout] = None,
+                fold_residual: bool = False) -> torch.Tensor:
+        """attn(x); with ``fold_residual``, x + attn(x) through K4."""
+        if fold_residual:
+            return fused_attention_block(
+                x.to(self.dtype), self.qkv.weight, self.qkv.bias,
+                self.out.weight, self.out.bias, self.nhead,
+            )
         if dropout is not None and self.dropout > 0.0:
             raise NotImplementedError(
                 "attention-probability dropout (backbone.dropout > 0 in "
@@ -178,11 +189,18 @@ class SelfAttention(nn.Module):
 class Block(nn.Module):
     """Pre-norm encoder block (`transformer_utils.py:103-210`)."""
 
-    def __init__(self, cfg: BackboneConfig, dtype=torch.float32):
+    def __init__(self, cfg: BackboneConfig, dtype=torch.float32,
+                 fused_block: bool = False, fused_ffn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.dropout = cfg.dropout
+        self.activation_name = cfg.activation
         self.activation = ACTIVATIONS[cfg.activation]
+        # the switches, where the kernels take these shapes
+        self.fused_block = fused_block and can_use_fused_block(
+            cfg.d_model // cfg.nhead, cfg.d_model
+        )
+        self.fused_ffn = fused_ffn and can_use_fused_ffn(cfg.d_model, cfg.activation)
         tt = cfg.timestep_type
         if tt is None:
             self.norm1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
@@ -205,7 +223,18 @@ class Block(nn.Module):
         # the trunk is REPLACED by norm1(x) (reference quirk), and the
         # residual stream is carried in the compute dtype
         x = x.to(self.dtype)
-        x = x + drop(self.attn(x, dropout), self.dropout)
+        # the fused kernels have no backward and no dropout: inference only
+        inference = dropout is None and not torch.is_grad_enabled()
+        if self.fused_block and inference:
+            x = self.attn(x, fold_residual=True)
+        else:
+            x = x + drop(self.attn(x, dropout), self.dropout)
+        if self.fused_ffn and inference:
+            return fused_ln_ffn_residual(
+                x, self.norm2.weight, self.norm2.bias, self.linear1.weight,
+                self.linear1.bias, self.linear2.weight, self.linear2.bias,
+                self.activation_name, LN_EPS,
+            )
         h = self.norm2(x.float())
         h = self.activation(_linear(h, self.linear1, self.dtype))
         h = _linear(drop(h, self.dropout), self.linear2, self.dtype)
@@ -215,10 +244,11 @@ class Block(nn.Module):
 class TransformerEncoder(nn.Module):
     """Stack of Blocks threading the timestep (`transformer_utils.py:213-246`)."""
 
-    def __init__(self, cfg: BackboneConfig, dtype=torch.float32):
+    def __init__(self, cfg: BackboneConfig, dtype=torch.float32,
+                 fused_block: bool = False, fused_ffn: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(cfg, dtype) for _ in range(cfg.num_layers)
+            Block(cfg, dtype, fused_block, fused_ffn) for _ in range(cfg.num_layers)
         )
 
     def forward(self, x: torch.Tensor, timestep: torch.Tensor,
@@ -280,6 +310,8 @@ class CategoricalTransformer(nn.Module):
         pos_emb: str = "elem_attr",
         n_attr_per_elem: int = 5,
         dtype=torch.float32,
+        fused_block: bool = False,
+        fused_ffn: bool = False,
     ):
         super().__init__()
         d = backbone.d_model
@@ -289,7 +321,7 @@ class CategoricalTransformer(nn.Module):
             self.pos = PositionalEmbedding(d, max_token_length)
         else:
             self.pos = ElementPositionalEmbedding(d, max_token_length, n_attr_per_elem)
-        self.backbone = TransformerEncoder(backbone, dtype)
+        self.backbone = TransformerEncoder(backbone, dtype, fused_block, fused_ffn)
         self.head_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.head = nn.Linear(d, num_classes, bias=False)
 

@@ -1,7 +1,8 @@
-"""Packed-qkv self-attention: the CUDA kernels K1 (forward) and K2
-(backward), their plain twins, and the autograd binding (port of
-``layoutdm_tpu/ops/attention.py::fused_attention_qkv``,
-``fused_attention_qkv_bwd`` and the custom VJP ``fused_attention_qkv_diff``).
+"""Self-attention kernels: K1 (packed-qkv forward), K2 (its backward),
+K4 (the whole attention block), their plain versions, and the autograd
+binding of K1 and K2 (port of ``layoutdm_tpu/ops/attention.py::
+fused_attention_qkv``, ``fused_attention_qkv_bwd``, the custom VJP
+``fused_attention_qkv_diff`` and ``fused_attention_block``).
 
 ``fused_attention_qkv`` takes the denoiser's packed (B, S, 3D) projection
 output, heads as ``[h*hd]`` column blocks of q, k and v, and returns
@@ -11,6 +12,14 @@ launches its hand-written Hopper kernel (``csrc/attention_qkv.cu``,
 ``csrc/attention_qkv_bwd.cu``, built by ``nvcc`` at first use) or raises; on
 a CPU tensor each runs its plain PyTorch twin, which has the kernel's
 rounding points.  There is no fallback between the two.
+
+``fused_attention_block`` (K4, ``csrc/attention_block.cu``) takes the
+block input x (B, S, D) and the projections in the ``nn.Linear`` layout
+(``w_qkv`` (3D, D), ``w_out`` (D, D)) at the native head width, and returns
+x + attn(x W_qkvᵀ + b_qkv) W_outᵀ + b_out, the residual added in float32
+before the one final rounding (the unfused path rounds the attention
+output first).  The TPU package's weight scatter to 64-lane heads is a
+layout trick with no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,8 +36,12 @@ from layoutdm_tpu_torch.ops.cuda_build import BuiltLibrary, load_library
 # call counts once, though it runs two passes
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_BLOCK = 0
 
 MAX_HEAD_DIM = 128
+# K4 stages one head (<= 64 wide) and a (64, D) row tile in shared memory
+MAX_BLOCK_HEAD_DIM = 64
+MAX_BLOCK_D_MODEL = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -209,3 +222,88 @@ def fused_attention_qkv_diff(
 ) -> torch.Tensor:
     """Differentiable `fused_attention_qkv`: its gradient is K2."""
     return _AttentionQKV.apply(qkv, num_heads, scale)
+
+
+def can_use_fused_block(head_dim: int, d_model: int) -> bool:
+    """Shapes K4 takes (the JAX gate's VMEM-fit conditions have no
+    counterpart here)."""
+    return head_dim <= MAX_BLOCK_HEAD_DIM and d_model <= MAX_BLOCK_D_MODEL
+
+
+def attention_block_reference(
+    x: torch.Tensor, w_qkv, b_qkv, w_out, b_out, num_heads: int, scale: float = 0.0
+) -> torch.Tensor:
+    """Plain version of K4, with its rounding points: projections
+    accumulated in float32 over io-dtype operands, qkv rounded to the io
+    dtype, attention as `attention_qkv_reference`, the out projection in
+    float32 plus b_out plus the residual x, rounded once."""
+    dt = x.dtype
+    qkv = x.float() @ w_qkv.to(dt).float().T + b_qkv.to(dt).float()
+    o = attention_qkv_reference(qkv.to(dt), num_heads, scale)
+    out = o.float() @ w_out.to(dt).float().T + b_out.to(dt).float() + x.float()
+    return out.to(dt)
+
+
+@functools.cache
+def block_kernel_library() -> BuiltLibrary:
+    """Build (first call) and bind the attention-block kernel K4."""
+    built = load_library("attention_block", ["attention_block.cu"])
+    fn = built.lib.attention_block_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, w_qkv, b_qkv
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # w_out, b_out, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B S H hd
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def fused_attention_block(
+    x: torch.Tensor, w_qkv, b_qkv, w_out, b_out, num_heads: int, scale: float = 0.0
+) -> torch.Tensor:
+    """x + attention block of x: ``x`` (B, S, D) float32 or bfloat16,
+    ``w_qkv`` (3D, D), ``b_qkv`` (3D,), ``w_out`` (D, D), ``b_out`` (D,)
+    in any float dtype (cast to x's); ``scale`` overrides 1/sqrt(hd)."""
+    global LAUNCHES_BLOCK
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, S, D), got {tuple(x.shape)}")
+    B, S, D = x.shape
+    if D % num_heads:
+        raise ValueError(f"d_model {D} not divisible by num_heads {num_heads}")
+    if (tuple(w_qkv.shape) != (3 * D, D) or tuple(b_qkv.shape) != (3 * D,)
+            or tuple(w_out.shape) != (D, D) or tuple(b_out.shape) != (D,)):
+        raise ValueError(f"block weights do not match d_model {D}")
+    hd = D // num_heads
+    if x.device.type == "cpu":
+        return attention_block_reference(x, w_qkv, b_qkv, w_out, b_out, num_heads, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no attention-block kernel for device {x.device}")
+    dt = x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dt}")
+    if not can_use_fused_block(hd, D):
+        raise ValueError(
+            f"head dim {hd} / d_model {D} over the kernel's "
+            f"{MAX_BLOCK_HEAD_DIM} / {MAX_BLOCK_D_MODEL}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    scale = scale or 1.0 / math.sqrt(hd)
+    w_qkv, b_qkv, w_out, b_out = (
+        p.to(x.device, dt).contiguous() for p in (w_qkv, b_qkv, w_out, b_out)
+    )
+    out = torch.empty_like(x)
+    fn = block_kernel_library().lib.attention_block_launch
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(
+            x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_out.data_ptr(),
+            b_out.data_ptr(), out.data_ptr(), B, S, num_heads, hd,
+            float(scale), _DTYPE_CODE[dt], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention_block kernel launch failed: CUDA error {err}")
+    LAUNCHES_BLOCK += 1
+    return out

@@ -3,8 +3,8 @@ with ``ctypes``.
 
 Each library is compiled for Hopper (``sm_90a``) into a shared object with a
 plain C interface, under ``layoutdm_tpu_torch/_build/`` (git-ignored), named
-by a hash of its sources and flags: a changed source builds anew, an
-unchanged one loads the cached file.  Nothing is downloaded and no PyTorch
+by a hash of its sources, the shared headers and the flags: a changed source
+builds anew, an unchanged one loads the cached file.  Nothing is downloaded and no PyTorch
 header is compiled, so a build takes seconds.
 """
 
@@ -69,7 +69,8 @@ def load_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
             return _LOADED[name]
         paths = [CSRC_DIR / s for s in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        # the shared headers (``csrc/*.cuh``) are part of every source
+        for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
             digest.update(p.name.encode())
             digest.update(p.read_bytes())
         so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

@@ -4,7 +4,11 @@
         [max_batch_size=64] [timestep_ladder=25,100] [device=cuda|cpu]
 
 The device is CUDA unless ``device=cpu`` is given; without CUDA the
-service refuses to start rather than fall back to the CPU.
+service refuses to start rather than fall back to the CPU.  With the JAX
+package's switches ``LAYOUTDM_TPU_FUSED_BLOCK=1`` and
+``LAYOUTDM_TPU_FUSED_FFN=1`` in the environment the denoiser runs on the
+fused kernels (K4 attention block, K3 LayerNorm-FFN-residual); the startup
+log and ``/healthz`` name the path.
 
 Endpoints
 ---------
@@ -39,7 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from layoutdm_tpu.configs import SamplingConfig
+from layoutdm_tpu_torch.configs import SamplingConfig
 from layoutdm_tpu_torch.models.diffusion.sampler import SamplerCond, timestep_ladder
 from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
 from layoutdm_tpu_torch.utils.device import require_device
@@ -100,16 +104,21 @@ class LayoutService:
         coalesce_window_ms: float = 2.0,
         request_timeout_s: float = 600.0,
         max_queued_requests: int = 256,
-        device="cpu",
+        device="cuda",
+        fused_block: Optional[bool] = None,
+        fused_ffn: Optional[bool] = None,
     ):
         from layoutdm_tpu_torch.factory import build_model, build_tokenizer
         from layoutdm_tpu_torch.utils.params import load_job
 
         self.train_cfg, state_dict = load_job(job_dir)
         self.train_cfg.data.pad_until_max = True
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.tokenizer = build_tokenizer(self.train_cfg)
-        self.model = build_model(self.train_cfg, self.tokenizer, self.device)
+        self.model = build_model(
+            self.train_cfg, self.tokenizer, self.device,
+            fused_block=fused_block, fused_ffn=fused_ffn,
+        )
         self.model.net.load_state_dict(state_dict)
         self.sampling = sampling or SamplingConfig(name="random")
         self.B = int(max_batch_size)
@@ -147,7 +156,8 @@ class LayoutService:
                 logger.info("warmup: %s T=%d", task, t)
                 self.generate(task, min(4, self.B), seed=0, layout=lay,
                               num_timesteps=t)
-        logger.info("service ready (batch=%d, device=%s)", self.B, self.device)
+        logger.info("service ready (batch=%d, device=%s, denoiser: %s)",
+                    self.B, self.device, self.model.denoiser_path)
 
     # -- coalescing device worker -------------------------------------------
     def _worker_loop(self):
@@ -190,7 +200,7 @@ class LayoutService:
         refinement."""
         S, V = self.model.seq_len, self.model.num_classes
         wshape = (n, S, V) if has_weak else (n, 1, 1)
-        c = SamplerCond.empty(n, S)
+        c = SamplerCond.empty(n, S, "cpu")
         c.weak_logits = torch.zeros(wshape)
         c.init_from_seq = init_from_seq
         return c
@@ -339,6 +349,7 @@ class LayoutService:
             "model": self.train_cfg.model.name,
             "dataset": self.train_cfg.dataset.name,
             "device": str(self.device),
+            "denoiser": self.model.denoiser_path,
             "max_elements": self.tokenizer.max_elements,
             "max_batch_size": self.B,
             "timestep_ladder": list(self.ladder),

@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from layoutdm_tpu.configs import SamplingConfig
+from layoutdm_tpu_torch.configs import SamplingConfig
 from layoutdm_tpu_torch.models.diffusion.sampler import SamplerCond
 from layoutdm_tpu_torch.ops.masking import batch_topk_mask, sample_mask
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer

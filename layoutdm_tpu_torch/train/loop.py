@@ -12,7 +12,7 @@ atomically, so a job killed anywhere resumes from a consistent state.
 
 The device is CUDA unless ``device=cpu`` is given; without CUDA the trainer
 refuses to start.  Data loading, transforms, schedulers and the events
-writer are the JAX package's own jax-free modules.
+writer are the port's copies of the JAX package's numpy-only modules.
 """
 
 from __future__ import annotations
@@ -26,16 +26,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from layoutdm_tpu.configs import TrainConfig
-from layoutdm_tpu.data.datasets import load_dataset
-from layoutdm_tpu.data.loader import batch_iterator
-from layoutdm_tpu.data.transforms import compose_transform
-from layoutdm_tpu.train.schedulers import (
+from layoutdm_tpu_torch.configs import TrainConfig
+from layoutdm_tpu_torch.data.datasets import load_dataset
+from layoutdm_tpu_torch.data.loader import batch_iterator
+from layoutdm_tpu_torch.data.transforms import compose_transform
+from layoutdm_tpu_torch.train.schedulers import (
     build_scheduler,
     restore_scheduler_state,
     scheduler_state,
 )
-from layoutdm_tpu.utils.tb import EventsWriter
+from layoutdm_tpu_torch.utils.tb import EventsWriter
 from layoutdm_tpu_torch.factory import build_model, build_tokenizer
 from layoutdm_tpu_torch.train import checkpoint as ckpt
 from layoutdm_tpu_torch.train.step import (
@@ -73,7 +73,7 @@ def _restore_generators(states: Dict, gen: torch.Generator,
 
 
 def _render_samples(model, gen, path: str, num_categories: int, tb, epoch: int) -> None:
-    from layoutdm_tpu.utils.visualization import save_image
+    from layoutdm_tpu_torch.utils.visualization import save_image
 
     layouts = model.sample(gen, 16)
     save_image({k: v.cpu().numpy() for k, v in layouts.items()}, path, num_categories)
@@ -222,7 +222,7 @@ def main(argv=None):
     import argparse
     import copy
 
-    from layoutdm_tpu.configs import build_train_config
+    from layoutdm_tpu_torch.configs import build_train_config
 
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(

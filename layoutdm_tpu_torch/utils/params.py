@@ -25,7 +25,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from layoutdm_tpu import configs as _configs
+from layoutdm_tpu_torch import configs as _configs
 
 CONFIG_FILE = "config.json"
 PARAMS_FILE = "params.pt"

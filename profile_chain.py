@@ -5,7 +5,11 @@
 For each batch size, the flagship LayoutDM (Rico25 width, bfloat16, random
 weights from a seed) runs a chain of ``--steps`` steps in the service's
 per-row-seed regime with the random sampler: once to warm up, once timed,
-once under ``torch.profiler``.  Per batch size it reports:
+once under ``torch.profiler``.  The denoiser path follows the JAX
+package's switches: with ``LAYOUTDM_TPU_FUSED_BLOCK=1`` and
+``LAYOUTDM_TPU_FUSED_FFN=1`` in the environment it is the fused path (K4 +
+K3), else K1 and the unfused FFN; ``path`` names it.  Per batch size it
+reports:
 
 - ``wall_ms_per_step``: host clock around a chain run without the
   profiler, synchronised;
@@ -86,6 +90,7 @@ def profile_batch(batch: int, steps: int, out_dir: str, device="cuda") -> dict:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
     return {
         "B": batch,
+        "path": model.denoiser_path,
         "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "kernel_ms_per_step": kernel_ms / steps,

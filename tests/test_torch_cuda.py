@@ -1,8 +1,9 @@
-"""The port on a CUDA card: the hand-written attention kernels (K1 forward,
-K2 backward) against their plain versions, the denoiser and the per-row
-noise on the card against the CPU.  Every test here is marked ``cuda`` and skips without a card.
+"""The port on a CUDA card: the hand-written kernels (K1 attention forward,
+K2 its backward, K3 LayerNorm-FFN-residual, K4 attention block) against
+their plain versions, the denoiser (both paths) and the per-row noise on
+the card against the CPU.  Every test here is marked ``cuda`` and skips without a card.
 
-This file imports no jax (of the JAX package only its jax-free configs, as
+This file imports no jax and nothing of the JAX package (as
 the port does), so it also runs on a GPU host without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from layoutdm_tpu.configs import BackboneConfig, build_train_config
+from layoutdm_tpu_torch.configs import BackboneConfig, build_train_config
 from layoutdm_tpu_torch.factory import build_model
 from layoutdm_tpu_torch.models.nn import make_transformer
 from layoutdm_tpu_torch.ops import attention
@@ -23,6 +24,7 @@ from layoutdm_tpu_torch.ops.attention import (
     fused_attention_qkv_bwd,
     fused_attention_qkv_diff,
 )
+from layoutdm_tpu_torch.ops import ffn
 from layoutdm_tpu_torch.ops.samplers import gumbel_noise, row_uniform
 
 F32_TOL = 1e-4
@@ -32,6 +34,9 @@ BF16_TOL = 2e-2
 # that differ in their last bits, and the bf16 output rounding (2**-8)
 BWD_F32_TOL = 1e-5
 BWD_BF16_TOL = 1e-2
+# K3 and K4 in bfloat16, relative to the largest output (the residual
+# included): two rounding steps (2**-8 each) of the largest value
+FUSED_BF16_REL_TOL = 2 ** -7
 
 pytestmark = pytest.mark.cuda
 
@@ -248,3 +253,122 @@ def test_train_step_on_card_matches_cpu(cuda):
     for k in w_cpu:
         live = g_cpu[k].abs() > 1e-3 * scale
         torch.testing.assert_close(w_gpu[k][live], w_cpu[k][live], rtol=0, atol=1e-5)
+
+
+def _fused_tol(want):
+    if want.dtype == torch.float32:
+        return F32_TOL
+    return FUSED_BF16_REL_TOL * max(1.0, want.float().abs().max().item())
+
+
+def _ffn_params(rs, D, Fd, device, dtype):
+    t = lambda a: torch.as_tensor(a.astype(np.float32))
+    return {
+        "ln_scale": t(1 + 0.1 * rs.randn(D)).to(device), "ln_bias": t(0.1 * rs.randn(D)).to(device),
+        "w1": t(rs.randn(Fd, D) / np.sqrt(D)).to(device, dtype), "b1": t(0.1 * rs.randn(Fd)).to(device, dtype),
+        "w2": t(rs.randn(D, Fd) / np.sqrt(Fd)).to(device, dtype), "b2": t(0.1 * rs.randn(D)).to(device, dtype),
+    }
+
+
+@pytest.mark.parametrize(
+    "lead,D,Fd,dtype,act",
+    [
+        ((4, 125), 464, 1856, torch.float32, "relu"),
+        ((4, 125), 464, 1856, torch.bfloat16, "relu"),
+        ((21,), 464, 1856, torch.bfloat16, "gelu"),
+        ((3, 25), 116, 58, torch.float32, "gelu2"),
+        ((3, 25), 116, 58, torch.bfloat16, "gelu2"),
+        ((1, 7), 512, 200, torch.bfloat16, "gelu"),
+    ],
+)
+def test_ffn_kernel_matches_plain_version(cuda, lead, D, Fd, dtype, act):
+    rs = np.random.RandomState(3)
+    p = _ffn_params(rs, D, Fd, cuda, dtype)
+    x = torch.as_tensor((0.5 * rs.randn(*lead, D)).astype(np.float32)).to(cuda, dtype)
+    before = ffn.LAUNCHES_FFN
+    got = ffn.fused_ln_ffn_residual(x, **p, activation=act)
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES_FFN == before + 1
+    want = ffn.ln_ffn_residual_reference(x, **p, activation=act)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_fused_tol(want))
+
+
+def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
+    rs = np.random.RandomState(4)
+    p = _ffn_params(rs, 64, 32, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        ffn.fused_ln_ffn_residual(torch.zeros(2, 64, device=cuda, dtype=torch.float16), **p,
+                                  activation="relu")
+    with pytest.raises(ValueError):
+        ffn.fused_ln_ffn_residual(torch.zeros(64, 2, device=cuda).T, **p, activation="relu")
+    big = _ffn_params(rs, 520, 32, cuda, torch.float32)
+    with pytest.raises(ValueError):
+        ffn.fused_ln_ffn_residual(torch.zeros(2, 520, device=cuda), **big, activation="relu")
+
+
+def _block_params(rs, D, device, dtype):
+    t = lambda a: torch.as_tensor(a.astype(np.float32)).to(device, dtype)
+    return {"w_qkv": t(rs.randn(3 * D, D) / np.sqrt(D)), "b_qkv": t(0.1 * rs.randn(3 * D)),
+            "w_out": t(rs.randn(D, D) / np.sqrt(D)), "b_out": t(0.1 * rs.randn(D))}
+
+
+@pytest.mark.parametrize(
+    "B,S,H,hd,dtype",
+    [
+        (2, 125, 8, 58, torch.float32),
+        (3, 125, 8, 58, torch.bfloat16),
+        (1, 500, 8, 58, torch.bfloat16),
+        (1, 500, 8, 58, torch.float32),
+        (2, 1, 2, 64, torch.float32),
+        (2, 33, 3, 40, torch.bfloat16),
+        (1, 70, 1, 5, torch.float32),
+    ],
+)
+def test_block_kernel_matches_plain_version(cuda, B, S, H, hd, dtype):
+    rs = np.random.RandomState(5)
+    p = _block_params(rs, H * hd, cuda, dtype)
+    x = torch.as_tensor((0.5 * rs.randn(B, S, H * hd)).astype(np.float32)).to(cuda, dtype)
+    before = attention.LAUNCHES_BLOCK
+    got = attention.fused_attention_block(x, **p, num_heads=H)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BLOCK == before + 1
+    want = attention.attention_block_reference(x, **p, num_heads=H)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_fused_tol(want))
+
+
+def test_block_kernel_rejects_what_it_does_not_take(cuda):
+    rs = np.random.RandomState(6)
+    p = _block_params(rs, 64, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        attention.fused_attention_block(torch.zeros(1, 4, 64, device=cuda, dtype=torch.float16),
+                                        **p, num_heads=2)
+    with pytest.raises(ValueError):  # head dim 128 > the kernel's 64
+        attention.fused_attention_block(torch.zeros(1, 4, 128, device=cuda),
+                                        **_block_params(rs, 128, cuda, torch.float32), num_heads=1)
+    with pytest.raises(ValueError):
+        attention.fused_attention_block(torch.zeros(1, 64, 4, device=cuda).transpose(1, 2),
+                                        **p, num_heads=2)
+
+
+def test_fused_denoiser_on_card_matches_cpu(cuda):
+    """The fused path (K4 + K3) on the card against the same weights on the
+    CPU (plain versions), float32."""
+    kw = dict(
+        backbone=BackboneConfig(d_model=116, nhead=2, dim_feedforward=64,
+                                num_layers=2, timestep_type="adalayernorm",
+                                diffusion_step=10),
+        num_classes=30, max_token_length=25, fused_block=True, fused_ffn=True,
+    )
+    cpu = make_transformer("cpu", torch.Generator().manual_seed(5), **kw)
+    gpu = make_transformer(cuda, torch.Generator().manual_seed(5), **kw)
+    rs = np.random.RandomState(0)
+    ids = torch.as_tensor(rs.randint(0, 30, (3, 25)))
+    t = torch.as_tensor(rs.randint(0, 10, (3,)))
+    launches = attention.LAUNCHES_BLOCK, ffn.LAUNCHES_FFN
+    with torch.inference_mode():
+        want = cpu(ids, t)
+        got = gpu(ids.to(cuda), t.to(cuda)).cpu()
+    assert (attention.LAUNCHES_BLOCK, ffn.LAUNCHES_FFN) == (launches[0] + 2, launches[1] + 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)

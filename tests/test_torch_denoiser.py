@@ -10,6 +10,7 @@ import torch
 
 from layoutdm_tpu.configs import BackboneConfig
 from layoutdm_tpu.models.nn import CategoricalTransformer as JaxTransformer
+from layoutdm_tpu_torch.configs import BackboneConfig as TBackboneConfig
 from layoutdm_tpu_torch.models.nn import make_transformer
 from layoutdm_tpu_torch.utils.params import params_from_flax
 
@@ -51,7 +52,7 @@ def _pair(case, V=30, dtype=torch.float32):
         lambda p: np.asarray(p) + 0.1 * rs.randn(*np.shape(p)).astype(np.float32),
         params,
     )
-    tnet = make_transformer("cpu", backbone=BackboneConfig(**bb), num_classes=V,
+    tnet = make_transformer("cpu", backbone=TBackboneConfig(**bb), num_classes=V,
                             max_token_length=S, pos_emb=case["pos_emb"], dtype=dtype)
     tnet.load_state_dict(params_from_flax(params), strict=True)
     return jnet, params, tnet
@@ -112,7 +113,7 @@ def test_params_from_flax_maps_every_leaf():
 
 
 def test_init_params_is_seeded_and_leaves_global_rng_alone():
-    kw = dict(backbone=BackboneConfig(d_model=32, nhead=2, dim_feedforward=16,
+    kw = dict(backbone=TBackboneConfig(d_model=32, nhead=2, dim_feedforward=16,
                                       num_layers=1, timestep_type="adalayernorm",
                                       diffusion_step=5),
               num_classes=12, max_token_length=10)

@@ -17,6 +17,7 @@ from layoutdm_tpu.models.diffusion.sampler import (
 )
 from layoutdm_tpu.models.diffusion.sampler import timestep_ladder as jax_ladder
 from layoutdm_tpu_torch import tasks as ttasks
+from layoutdm_tpu_torch.configs import SamplingConfig as TSampling
 from layoutdm_tpu_torch.models.diffusion.constrained import ConstrainedQ
 from layoutdm_tpu_torch.models.diffusion.sampler import (
     SamplerCond,
@@ -53,7 +54,7 @@ def test_timestep_ladder_identical(T, T_eval, td):
 
 def _qs(T=10):
     jt, tt = tokenizers()
-    return JaxQ(jt, T), ConstrainedQ(tt, T)
+    return JaxQ(jt, T), ConstrainedQ(tt, T, device="cpu")
 
 
 def test_q_pred_matches_jax_including_wraparound():
@@ -126,7 +127,7 @@ def test_get_cond_and_lowering_match_jax(task):
 
     js = SamplingConfig(name="random")
     jl = jtasks.to_sampler_cond(jc, jt, js)
-    tl = ttasks.to_sampler_cond(tc, tt, SamplingConfig(name="random"))
+    tl = ttasks.to_sampler_cond(tc, tt, TSampling(name="random"))
     for k in SamplerCond.TENSORS:
         np.testing.assert_array_equal(getattr(tl, k).numpy(), np.asarray(getattr(jl, k)), err_msg=k)
     assert tl.init_from_seq == jl.init_from_seq
@@ -148,13 +149,13 @@ def test_deterministic_chain_token_identical(pair, task):
         )
     want = np.asarray(jm.sample_ids(params, jax.random.PRNGKey(0), B, cond=jc, sampling=js))
     got = tm.sample_ids(torch.arange(B), B, cond=cond_to_port(jc),
-                        sampling=SamplingConfig(name="deterministic"))
+                        sampling=TSampling(name="deterministic"))
     np.testing.assert_array_equal(got.numpy(), want)
     # a skip-step ladder too (T_eval < T)
     want = np.asarray(jm.sample_ids(params, jax.random.PRNGKey(0), B, cond=jc,
                                     sampling=js, num_timesteps_eval=4))
     got = tm.sample_ids(torch.arange(B), B, cond=cond_to_port(jc),
-                        sampling=SamplingConfig(name="deterministic"),
+                        sampling=TSampling(name="deterministic"),
                         num_timesteps_eval=4)
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -164,7 +165,7 @@ def test_per_row_noise_independent_of_batch_mates(pair, name):
     _, _, tm = pair
     rs = np.random.RandomState(6)
     jt, tt = tokenizers()
-    sampling = SamplingConfig(name=name)
+    sampling = TSampling(name=name)
     batch = layout_batch(rs, 4)
     cond = ttasks.to_sampler_cond(ttasks.get_cond(batch, tt, "c"), tt, sampling)
     seeds = torch.tensor([11, 22, 33, 44])
@@ -207,5 +208,5 @@ def test_guidance_not_ported_yet(pair):
     _, _, tm = pair
     with pytest.raises(NotImplementedError):
         sample_chain(tm._predict_start, tm.q, torch.Generator(),
-                     SamplerCond.empty(1, tm.seq_len), SamplingConfig(), pad_id=0,
+                     SamplerCond.empty(1, tm.seq_len, "cpu"), TSampling(), pad_id=0,
                      guidance_fn=lambda *a: a[0])

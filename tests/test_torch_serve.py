@@ -16,12 +16,12 @@ from layoutdm_tpu.configs import (
     SamplingConfig,
     build_train_config,
     to_dict,
-    train_config_from_dict,
 )
 from layoutdm_tpu.factory import build_model as jax_build_model
 from layoutdm_tpu.serve_cli import LayoutService as JaxService
 from layoutdm_tpu.serve_cli import _row_seeds as jax_row_seeds
 from layoutdm_tpu.train import checkpoint as jax_ckpt
+from layoutdm_tpu_torch import configs as tconfigs
 from layoutdm_tpu_torch.serve_cli import (
     LayoutHTTPServer,
     LayoutService,
@@ -54,7 +54,7 @@ def jobs(tmp_path_factory):
     jax_ckpt.save_config(cfg, jax_dir)
     jax_ckpt.save_params(params, jax_dir, "best")
     with open(f"{jax_dir}/config.json") as f:
-        port_cfg = train_config_from_dict(json.load(f))
+        port_cfg = tconfigs.train_config_from_dict(json.load(f))
     save_job(port_cfg, params_from_flax(jax.tree.map(np.asarray, params)), port_dir)
     return jax_dir, port_dir, cfg
 
@@ -96,7 +96,7 @@ def services(jobs):
     js = JaxService(jax_dir, max_batch_size=4, warm_tasks=(),
                     sampling=SamplingConfig(name="deterministic"))
     ts = LayoutService(port_dir, max_batch_size=4, warm_tasks=(),
-                       sampling=SamplingConfig(name="deterministic"))
+                       sampling=tconfigs.SamplingConfig(name="deterministic"), device="cpu")
     yield js, ts
     js.close()
     ts.close()
@@ -120,7 +120,7 @@ def server(jobs):
     """The port's HTTP front over a random-sampling service with a ladder."""
     _, port_dir, _ = jobs
     svc = LayoutService(port_dir, max_batch_size=8, timestep_ladder=(4,),
-                        coalesce_window_ms=50.0)
+                        coalesce_window_ms=50.0, device="cpu")
     httpd = LayoutHTTPServer(("127.0.0.1", 0), make_handler(svc))
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()

@@ -12,6 +12,7 @@ from layoutdm_tpu.factory import build_tokenizer as jax_build_tokenizer
 from layoutdm_tpu.tokenizer.bbox import BboxTokenizer as JaxBbox
 from layoutdm_tpu.tokenizer.converter import Converter as JaxConverter
 from layoutdm_tpu.tokenizer.sequence import LayoutSequenceTokenizer as JaxTok
+from layoutdm_tpu_torch import configs as tconfigs
 from layoutdm_tpu_torch.factory import build_model, build_tokenizer
 from layoutdm_tpu_torch.tokenizer.bbox import BboxTokenizer
 from layoutdm_tpu_torch.tokenizer.converter import Converter
@@ -126,7 +127,7 @@ def test_converter_ids_exact_and_logs_within_tolerance(rng):
 def test_build_tokenizer_matches_jax_linear_and_cached_kmeans(tmp_path):
     over = [f"dataset.dir={tmp_path}/datasets/rico25"]
     jcfg = build_train_config("layoutdm", "rico25", over)
-    tcfg = build_train_config("layoutdm", "rico25", over)
+    tcfg = tconfigs.build_train_config("layoutdm", "rico25", over)
     # kmeans from the cached .npz the JAX package writes
     nb = tcfg.data.num_bin_bboxes
     cdir = tmp_path / "datasets" / "clustering_weights"
@@ -148,7 +149,7 @@ def test_build_tokenizer_matches_jax_linear_and_cached_kmeans(tmp_path):
 
 
 def test_build_model_names_later_ports():
-    cfg = build_train_config("layoutdm", "rico25", ["data.bbox_quantization=linear"])
+    cfg = tconfigs.build_train_config("layoutdm", "rico25", ["data.bbox_quantization=linear"])
     cfg.model.name = "maskgit"
     with pytest.raises(KeyError, match="not ported yet"):
-        build_model(cfg)
+        build_model(cfg, device="cpu")

@@ -26,6 +26,7 @@ from layoutdm_tpu.ops.samplers import gumbel_noise as jax_gumbel_noise
 from layoutdm_tpu.tokenizer.clustering import fit_coordinate_clusters as jax_fit
 from layoutdm_tpu.train.step import decay_mask
 from layoutdm_tpu.train.step import make_optimizer as jax_make_optimizer
+from layoutdm_tpu_torch import configs as tconfigs
 from layoutdm_tpu_torch.factory import resolve_centers
 from layoutdm_tpu_torch.models.diffusion.loss import (
     LtState,
@@ -319,11 +320,11 @@ def test_kmeans_centers_match_jax_and_cache(tmp_path):
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
     cfgs = [
-        build_train_config("layoutdm", "synthetic", [
+        build("layoutdm", "synthetic", [
             f"dataset.dir={tmp_path}/{pkg}/datasets", "dataset.max_seq_length=5",
             "data.num_bin_bboxes=8",
         ])
-        for pkg in ("jax", "port")
+        for pkg, build in (("jax", build_train_config), ("port", tconfigs.build_train_config))
     ]
     data = load_dataset("synthetic", "", "train", 5)
     want = jax_resolve_centers(cfgs[0], data)
@@ -359,7 +360,7 @@ def test_checkpoint_round_trip(pair, tmp_path):
 
 def test_resume_equals_an_uninterrupted_run(tmp_path):
     def cfg(job, epochs):
-        return build_train_config("layoutdm", "synthetic", TINY + [
+        return tconfigs.build_train_config("layoutdm", "synthetic", TINY + [
             f"job_dir={tmp_path}/{job}", f"dataset.dir={tmp_path}/datasets",
             "data.batch_size=512", f"training.epochs={epochs}",
         ])

@@ -1,7 +1,7 @@
 """Shared constructors for the port's parity tests: one tiny flagship-shaped
 LayoutDM in both packages on the same weights (flax init -> numpy ->
-``params_from_flax``), and task conditions handed from JAX to the port as
-numpy."""
+``params_from_flax``), each built from its own package's configs with the
+same fields, and task conditions handed from JAX to the port as numpy."""
 
 import jax
 import numpy as np
@@ -11,6 +11,7 @@ from layoutdm_tpu.configs import BackboneConfig, ModelConfig
 from layoutdm_tpu.models.layoutdm import LayoutDM as JaxLayoutDM
 from layoutdm_tpu.tokenizer.bbox import BboxTokenizer as JaxBbox
 from layoutdm_tpu.tokenizer.sequence import LayoutSequenceTokenizer as JaxTok
+from layoutdm_tpu_torch import configs as tconfigs
 from layoutdm_tpu_torch.models.diffusion.sampler import SamplerCond
 from layoutdm_tpu_torch.models.layoutdm import LayoutDM
 from layoutdm_tpu_torch.tokenizer.bbox import BboxTokenizer
@@ -39,13 +40,21 @@ def tokenizers(num_bins=NUM_BINS, shared_vocab="x-y-w-h", var_order=("x", "y", "
     return jt, tt
 
 
-def layoutdm_pair(seed=0, backbone=None):
-    """(jax model, jax params, port model) on identical weights."""
+def port_layoutdm(tt, backbone=None, **kw):
+    """The port's tiny LayoutDM on the CPU (its own configs)."""
+    bb = dict(BACKBONE, **(backbone or {}))
+    return LayoutDM(tconfigs.BackboneConfig(**bb), tt,
+                    tconfigs.ModelConfig(num_timesteps=NUM_TIMESTEPS), device="cpu", **kw)
+
+
+def layoutdm_pair(seed=0, backbone=None, **port_kw):
+    """(jax model, jax params, port model) on identical weights;
+    ``port_kw`` reach the port's `LayoutDM` (the fused-path switches)."""
     bb = dict(BACKBONE, **(backbone or {}))
     jt, tt = tokenizers()
     jm = JaxLayoutDM(BackboneConfig(**bb), jt, ModelConfig(num_timesteps=NUM_TIMESTEPS))
     params = jax.jit(jm.init)(jax.random.PRNGKey(seed))
-    tm = LayoutDM(BackboneConfig(**bb), tt, ModelConfig(num_timesteps=NUM_TIMESTEPS))
+    tm = port_layoutdm(tt, backbone, **port_kw)
     tm.net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     return jm, params, tm
 
