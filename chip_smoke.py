@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving and training paths (``layoutdm_tpu_torch``) and
-its fused-denoiser serving path at the flagship LayoutDM width (Rico25:
-vocab 155, 125 tokens, d_model 464, 8 heads of 58, FFN 1856, 4 layers;
-random weights from a seed) and checks them:
+Drives the port's serving and training paths (``layoutdm_tpu_torch``), its
+four denoiser paths (default: K1; fused: K4 + K3; v2: K5; smajor: K6),
+relation-guided requests and the batch sampling CLI at the flagship
+LayoutDM width (Rico25: vocab 155, 125 tokens, d_model 464, 8 heads of 58,
+FFN 1856, 4 layers; random weights from a seed) and checks them:
 
-1. device       card name, power limit, nvcc version, the four kernels
+1. device       card name, power limit, nvcc version, the six kernels
                 built in parallel, their build times and ptxas reports;
 2. kernel       the CUDA attention kernel (K1) against its plain PyTorch
                 version at the serving shapes, errors and times;
@@ -18,10 +19,16 @@ random weights from a seed) and checks them:
                 and times beside the unfused path;
 3b. block_kernel the attention-block kernel (K4) against its plain version
                 at S=125 and 500, errors and times beside the unfused path;
+3c. blockdiag_kernel the padded-head attention kernel (K5) against its
+                plain version, float32 and bfloat16, S = 21, 125 and 500,
+                padded output lanes exactly 0, times beside SDPA;
+3d. smajor_kernel the sequence-major attention kernel (K6) against its
+                plain version at d_model 464 and 256, times beside the bias
+                add + transpose + SDPA;
 4. denoiser     flagship-width logits and posteriors with the kernel against
                 the same weights with the plain attention, float32;
-4a. fused_denoiser the same with the fused path (K4 + K3) against the
-                unfused path (K1), float32;
+4a. fused_denoiser, v2_denoiser, smajor_denoiser: the same on each path
+                against the default path (K1), float32;
 5. train        (a) one float32 step's parameter gradients through K1 and
                 K2 against the plain versions, same weights and noise;
                 (b) bfloat16 train steps at B=1024: samples/s, peak memory,
@@ -35,9 +42,15 @@ random weights from a seed) and checks them:
                 the kernel's launch count over the service's runs, and
                 batch-1 latency at T=25 and T=100;
 8. throughput   unconditional sampling at B=1024, T=100, bfloat16;
-9. fused_serve  the serve phase on the fused path: K3 and K4 launches =
-                layers x chain steps and no K1 launch;
-10. fused_throughput the throughput phase on the fused path.
+9. fused_serve, fused_throughput, v2_serve, v2_throughput, smajor_serve,
+                smajor_throughput: phases 7 and 8 on each path, its kernels'
+                launches = layers x chain steps and no other attention or
+                FFN kernel launched; v2 and smajor also answer relation
+                requests (valid layouts, a violation rate, seed determinism);
+10. sample_cli  `python -m layoutdm_tpu_torch.sample_cli` (in process) on
+                the train_cli job on the v2 path, all six tasks: pickles
+                with the JAX CLI's keys, a violation rate for relation, K5
+                launched layers x chain steps.
 
 Each phase prints one JSON line and its seconds; then a ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -88,6 +101,10 @@ KERNELS = {
                         "layoutdm_tpu/ops/ffn.py:81"),
     "attention_block": ("layoutdm_tpu_torch/csrc/attention_block.cu",
                         "layoutdm_tpu/ops/attention.py:142"),
+    "attention_blockdiag": ("layoutdm_tpu_torch/csrc/attention_blockdiag.cu",
+                            "layoutdm_tpu/ops/attention_blockdiag.py:128"),
+    "attention_qkv_smajor": ("layoutdm_tpu_torch/csrc/attention_smajor.cu",
+                             "layoutdm_tpu/ops/attention.py:333"),
 }
 # H100 SXM published peaks (dense), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -165,7 +182,7 @@ def flagship_config(dtype: str):
 
 
 def phase_device() -> dict:
-    from layoutdm_tpu_torch.ops import attention, ffn
+    from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
     from layoutdm_tpu_torch.ops.cuda_build import find_nvcc
 
     smi = subprocess.run(
@@ -179,7 +196,9 @@ def phase_device() -> dict:
     libs = {"attention_qkv": attention.kernel_library,
             "attention_qkv_bwd": attention.bwd_kernel_library,
             "ln_ffn_residual": ffn.kernel_library,
-            "attention_block": attention.block_kernel_library}
+            "attention_block": attention.block_kernel_library,
+            "attention_blockdiag": attention_blockdiag.kernel_library,
+            "attention_qkv_smajor": attention.smajor_kernel_library}
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(build) for name, build in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -387,6 +406,130 @@ def phase_block_kernel(device="cuda") -> dict:
     return out
 
 
+def padded_slab(g, B, S, H, hd, hp, dtype, device="cuda") -> torch.Tensor:
+    """A random (B, S, 3·H·hp) slab whose heads are zero past hd, as the
+    weight scatter makes them."""
+    x = torch.zeros((B, S, 3, H, hp))
+    x[..., :hd] = torch.randn((B, S, 3, H, hd), generator=g)
+    return x.reshape(B, S, 3 * H * hp).to(device, dtype)
+
+
+def phase_blockdiag_kernel(device="cuda") -> dict:
+    """K5 against its plain version on padded-head slabs (hd 58 in hp 64);
+    the padded output lanes must be exactly 0.  Times beside SDPA's
+    forward on the hp-wide heads."""
+    import torch.nn.functional as F
+
+    from layoutdm_tpu_torch.ops.attention_blockdiag import (
+        blockdiag_attention,
+        blockdiag_attention_reference,
+    )
+
+    g = torch.Generator().manual_seed(14)
+    H, hd, hp = FLAG_H, FLAG_HD, 64
+    scale = hd ** -0.5
+    cases = [("s125_f32", 64, 125, torch.float32, F32_TOL),
+             ("s125_bf16", 64, 125, torch.bfloat16, BF16_TOL),
+             ("s500_bf16", 8, 500, torch.bfloat16, BF16_TOL),
+             ("s500_f32", 8, 500, torch.float32, F32_TOL),
+             ("s21_bf16", 5, 21, torch.bfloat16, BF16_TOL)]
+    errs = {}
+    for name, B, S, dtype, tol in cases:
+        qkv = padded_slab(g, B, S, H, hd, hp, dtype, device)
+        got = blockdiag_attention(qkv, H, hp, scale)
+        torch.cuda.synchronize()
+        want = blockdiag_attention_reference(qkv, H, hp, scale)
+        err = (got.float() - want.float()).abs().max().item()
+        pad = got.view(B, S, H, hp)[..., hd:]
+        if not (got.shape == want.shape and np.isfinite(err) and err <= tol):
+            raise AssertionError(f"K5 case {name}: max abs err {err} > {tol}")
+        if pad.count_nonzero().item():
+            raise AssertionError(f"K5 case {name}: padded output lanes are not 0")
+        errs[name] = err
+
+    times = {}
+    for name, B, S in TIMED_SHAPES:
+        qkv = padded_slab(g, B, S, H, hd, hp, torch.bfloat16, device)
+        q, k, v = sdpa_views(qkv, H)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+        times[name] = {
+            "kernel_ms": cuda_ms(lambda: blockdiag_attention(qkv, H, hp, scale)),
+            "plain_ms": cuda_ms(lambda: blockdiag_attention_reference(qkv, H, hp, scale)),
+            # the library call: SDPA's forward on the padded heads
+            "library_ms": cuda_ms(sdpa),
+            "library_kernels": device_kernels(sdpa),
+            # read the padded (B, S, 3·H·hp) slab, write (B, S, H·hp); q·kᵀ
+            # and p·v over the hp-wide heads
+            **bound(B * S * 4 * H * hp * 2, 4 * B * S * S * H * hp),
+        }
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    out = {"phase": "blockdiag_kernel", "max_abs_err": errs, "times": times}
+    emit(out)
+    return out
+
+
+def phase_smajor_kernel(device="cuda") -> dict:
+    """K6 against its plain version on sequence-major slabs plus a bias, at
+    the flagship width and at d_model 256 (the width the JAX gate admits).
+    Times beside the bias add + transpose + SDPA forward."""
+    import torch.nn.functional as F
+
+    from layoutdm_tpu_torch.ops.attention import (
+        attention_qkv_smajor_reference,
+        fused_attention_qkv_smajor,
+    )
+
+    g = torch.Generator().manual_seed(15)
+
+    def inputs(B, S, H, hd, dtype):
+        qkv = torch.randn((S, B, 3 * H * hd), generator=g)
+        bias = 0.5 * torch.randn((3 * H * hd,), generator=g)
+        return qkv.to(device, dtype), bias.to(device, dtype)
+
+    cases = [("s125_f32", 64, 125, 8, 58, torch.float32, F32_TOL),
+             ("s125_bf16", 64, 125, 8, 58, torch.bfloat16, BF16_TOL),
+             ("s500_bf16", 8, 500, 8, 58, torch.bfloat16, BF16_TOL),
+             ("s500_f32", 8, 500, 8, 58, torch.float32, F32_TOL),
+             ("d256_s125_bf16", 16, 125, 4, 64, torch.bfloat16, BF16_TOL),
+             ("d256_s21_f32", 3, 21, 4, 64, torch.float32, F32_TOL)]
+    errs = {}
+    for name, B, S, H, hd, dtype, tol in cases:
+        qkv, bias = inputs(B, S, H, hd, dtype)
+        got = fused_attention_qkv_smajor(qkv, bias, H)
+        torch.cuda.synchronize()
+        want = attention_qkv_smajor_reference(qkv, bias, H)
+        err = (got.float() - want.float()).abs().max().item()
+        if not (got.shape == want.shape and np.isfinite(err) and err <= tol):
+            raise AssertionError(f"K6 case {name}: max abs err {err} > {tol}")
+        errs[name] = err
+
+    times = {}
+    H, D = FLAG_H, FLAG_H * FLAG_HD
+    for name, B, S in TIMED_SHAPES:
+        qkv, bias = inputs(B, S, H, FLAG_HD, torch.bfloat16)
+
+        def library():
+            # no single call: the bias add, the transpose to batch-major
+            # and SDPA's forward
+            x = (qkv + bias).transpose(0, 1).contiguous()
+            return F.scaled_dot_product_attention(*sdpa_views(x, H))
+
+        times[name] = {
+            "kernel_ms": cuda_ms(lambda: fused_attention_qkv_smajor(qkv, bias, H)),
+            "plain_ms": cuda_ms(lambda: attention_qkv_smajor_reference(qkv, bias, H)),
+            "library_ms": cuda_ms(library),
+            "library_kernels": device_kernels(library),
+            # read the (S, B, 3D) slab and the bias, write (B, S, D)
+            **bound(B * S * 4 * D * 2 + 3 * D * 2, 4 * B * S * S * D),
+        }
+        del qkv, bias
+        torch.cuda.empty_cache()
+    out = {"phase": "smajor_kernel", "max_abs_err": errs, "times": times}
+    emit(out)
+    return out
+
+
 def phase_denoiser(device="cuda", batch=8, cfg=None) -> dict:
     """Same weights, kernel attention vs plain attention, float32."""
     from layoutdm_tpu_torch.factory import build_model, build_tokenizer
@@ -431,48 +574,83 @@ def phase_denoiser(device="cuda", batch=8, cfg=None) -> dict:
     return out
 
 
-def phase_fused_denoiser(device="cuda", batch=8, cfg=None) -> dict:
-    """Same weights, the fused path (K4 + K3) against the unfused path
-    (K1, unfused FFN), float32."""
+# the denoiser paths (the JAX package's switches, as `build_model`'s
+# keywords) and the kernels each launches once per layer and forward
+PATH_KERNELS = {"default": ("K1",), "fused": ("K4", "K3"), "v2": ("K5",), "smajor": ("K6",)}
+_SWITCH = {"fused": ("fused_block", "fused_ffn"), "v2": ("attn_v2",), "smajor": ("smajor",)}
+
+
+def path_switches(path: str) -> dict:
+    """`build_model` keywords that select ``path`` whatever the environment."""
+    on = _SWITCH.get(path, ())
+    return {k: k in on for k in ("fused_block", "fused_ffn", "attn_v2", "smajor")}
+
+
+def launch_counts() -> dict:
+    """The kernel wrappers' launch counters."""
+    from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
+
+    return {"K1": attention.LAUNCHES, "K2": attention.LAUNCHES_BWD,
+            "K3": ffn.LAUNCHES_FFN, "K4": attention.LAUNCHES_BLOCK,
+            "K5": attention_blockdiag.LAUNCHES_BLOCKDIAG, "K6": attention.LAUNCHES_SMAJOR}
+
+
+def reset_launches() -> None:
+    from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
+
+    attention.LAUNCHES = attention.LAUNCHES_BWD = attention.LAUNCHES_BLOCK = 0
+    attention.LAUNCHES_SMAJOR = ffn.LAUNCHES_FFN = attention_blockdiag.LAUNCHES_BLOCKDIAG = 0
+
+
+def check_path_launches(what: str, path: str, per_kernel: int) -> dict:
+    """Inference launches since the last reset: ``per_kernel`` for each
+    kernel of ``path``, none of the other forward kernels."""
+    got = {k: v for k, v in launch_counts().items() if k != "K2"}
+    want = {k: per_kernel if k in PATH_KERNELS[path] else 0 for k in got}
+    if got != want or per_kernel == 0:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return got
+
+
+def phase_path_denoiser(path: str, device="cuda", batch=8, cfg=None) -> dict:
+    """Same weights, one denoiser path (fused: K4 + K3; v2: K5; smajor: K6)
+    against the default path (K1, unfused FFN), float32."""
     from layoutdm_tpu_torch.factory import build_model, build_tokenizer
-    from layoutdm_tpu_torch.ops import attention, ffn
 
     cfg = cfg or flagship_config("float32")
     tok = build_tokenizer(cfg)
-    fused = build_model(cfg, tok, device, generator=torch.Generator().manual_seed(1),
-                        fused_block=True, fused_ffn=True)
-    unfused = build_model(cfg, tok, device, fused_block=False, fused_ffn=False)
-    unfused.net.load_state_dict(fused.net.state_dict())
-    layers = fused.backbone_cfg.num_layers
+    model = build_model(cfg, tok, device, generator=torch.Generator().manual_seed(1),
+                        **path_switches(path))
+    default = build_model(cfg, tok, device, **path_switches("default"))
+    default.net.load_state_dict(model.net.state_dict())
+    layers = model.backbone_cfg.num_layers
 
     rs = np.random.RandomState(2)
     ids = torch.as_tensor(
-        rs.randint(0, fused.num_classes, (batch, fused.seq_len)), device=device
+        rs.randint(0, model.num_classes, (batch, model.seq_len)), device=device
     )
     with torch.inference_mode():
-        T = fused.q.num_timesteps
+        T = model.q.num_timesteps
         t = torch.full((batch,), T // 2, device=device)
-        attention.LAUNCHES = attention.LAUNCHES_BLOCK = ffn.LAUNCHES_FFN = 0
-        got = fused.net(ids, t)
-        launches = (attention.LAUNCHES, attention.LAUNCHES_BLOCK, ffn.LAUNCHES_FFN)
-        if launches != (0, layers, layers):
-            raise AssertionError(f"fused forward launched K1/K4/K3 {launches}")
-        want = unfused.net(ids, t)
+        reset_launches()
+        got = model.net(ids, t)
+        check_path_launches(f"{path} forward", path, layers)
+        want = default.net(ids, t)
         logit_err = (got - want).abs().max().item()
         if not (torch.isfinite(got).all() and logit_err <= DENOISER_TOL):
-            raise AssertionError(f"fused denoiser logits max abs err {logit_err}")
+            raise AssertionError(f"{path} denoiser logits max abs err {logit_err}")
         post_err = {}
         for step in (T - 1, 3 * T // 4, T // 2, T // 4, 0):  # 99 75 50 25 0
             t = torch.full((batch,), step, device=device)
-            pg = fused.q.q_posterior_ids(fused._predict_start(ids, t), ids, t)
-            pw = unfused.q.q_posterior_ids(unfused._predict_start(ids, t), ids, t)
+            pg = model.q.q_posterior_ids(model._predict_start(ids, t), ids, t)
+            pw = default.q.q_posterior_ids(default._predict_start(ids, t), ids, t)
             post_err[step] = (pg - pw).abs().max().item()
             if not (torch.isfinite(pg).all() and post_err[step] <= DENOISER_TOL):
-                raise AssertionError(f"fused posterior t={step} max abs err {post_err[step]}")
+                raise AssertionError(f"{path} posterior t={step} max abs err {post_err[step]}")
     out = {
-        "phase": "fused_denoiser",
-        "path": fused.denoiser_path,
-        "d_model": fused.backbone_cfg.d_model,
+        "phase": f"{path}_denoiser",
+        "path": model.denoiser_path,
+        "d_model": model.backbone_cfg.d_model,
         "num_layers": layers,
         "logits_max_abs_err": logit_err,
         "posterior_max_abs_err": post_err,
@@ -726,32 +904,33 @@ def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
     return out
 
 
-def phase_train_cli(device="cuda", overrides=()) -> dict:
+def phase_train_cli(work_dir: str, device="cuda", overrides=()) -> dict:
+    """The trainer on the synthetic dataset into ``work_dir``/job, which
+    the service then loads and answers a request from (and the sample_cli
+    phase samples from)."""
     from layoutdm_tpu_torch.configs import build_train_config
-    from layoutdm_tpu_torch.ops import attention
     from layoutdm_tpu_torch.serve_cli import LayoutService
     from layoutdm_tpu_torch.train.loop import train
 
-    with tempfile.TemporaryDirectory() as d:
-        cfg = build_train_config("layoutdm", "synthetic", [
-            "debug=true", "training.sample_plot_epoch_interval=0",
-            f"job_dir={d}/job", f"dataset.dir={d}/datasets", *overrides,
-        ])
-        attention.LAUNCHES = attention.LAUNCHES_BWD = 0
-        t0 = time.perf_counter()
-        result = train(cfg, device=device)
-        sec = time.perf_counter() - t0
-        launches_bwd = attention.LAUNCHES_BWD
-        if not (np.isfinite(result["best_val_loss"]) and launches_bwd > 0):
-            raise AssertionError(f"trainer result {result}, K2 launches {launches_bwd}")
-        with open(os.path.join(cfg.job_dir, "metrics.jsonl")) as f:
-            epochs = [json.loads(line) for line in f]
-        service = LayoutService(cfg.job_dir, max_batch_size=8, warm_tasks=(),
-                                device=device)
-        try:
-            resp = service.generate("unconditional", 2, 3, None)
-        finally:
-            service.close()
+    cfg = build_train_config("layoutdm", "synthetic", [
+        "debug=true", "training.sample_plot_epoch_interval=0",
+        f"job_dir={work_dir}/job", f"dataset.dir={work_dir}/datasets", *overrides,
+    ])
+    reset_launches()
+    t0 = time.perf_counter()
+    result = train(cfg, device=device)
+    sec = time.perf_counter() - t0
+    launches_bwd = launch_counts()["K2"]
+    if not (np.isfinite(result["best_val_loss"]) and launches_bwd > 0):
+        raise AssertionError(f"trainer result {result}, K2 launches {launches_bwd}")
+    with open(os.path.join(cfg.job_dir, "metrics.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    service = LayoutService(cfg.job_dir, max_batch_size=8, warm_tasks=(),
+                            device=device)
+    try:
+        resp = service.generate("unconditional", 2, 3, None)
+    finally:
+        service.close()
     _check_layouts(resp, 2, cfg.dataset.num_categories)
     out = {
         "phase": "train_cli",
@@ -763,6 +942,71 @@ def phase_train_cli(device="cuda", overrides=()) -> dict:
         "launches_bwd": launches_bwd,
         "served_layouts": len(resp["layouts"]),
     }
+    emit(out)
+    return out
+
+
+SAMPLE_TASKS = ("unconditional", "c", "cwh", "partial", "refinement", "relation")
+
+
+def phase_sample_cli(work_dir: str, device="cuda", num_samples=16, num_timesteps=20,
+                     path="v2") -> dict:
+    """The batch sampling CLI (`sample_cli.main`, as ``python -m`` runs it)
+    over all six tasks on the job the train_cli phase wrote, with the
+    denoiser path's switch in the environment: six pickles with the JAX
+    CLI's keys, a violation rate for relation, and the path's kernel
+    launched layers x chain steps (a warm-up and a timed chain per task)."""
+    import pickle
+
+    from layoutdm_tpu_torch.sample_cli import main as sample_main
+
+    env = {"LAYOUTDM_TPU_ATTN_V2": "0", "LAYOUTDM_TPU_SMAJOR": "0",
+           "LAYOUTDM_TPU_FUSED_BLOCK": "0", "LAYOUTDM_TPU_FUSED_FFN": "0"}
+    env.update({f"LAYOUTDM_TPU_{k.upper()}": "1"
+                for k, on in path_switches(path).items() if on})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    results, rates = {}, {}
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        for task in SAMPLE_TASKS:
+            (pkl,) = sample_main([
+                f"job_dir={work_dir}/job", f"result_dir={work_dir}/results", f"cond={task}",
+                f"device={device}", f"debug_num_samples={num_samples}",
+                f"num_uncond_samples={num_samples}", f"max_batch_size={num_samples}",
+                f"num_timesteps={num_timesteps}",
+            ])
+            with open(pkl, "rb") as f:
+                res = pickle.load(f)
+            keys = {"results", "inputs", "train_cfg", "test_cfg", "ms_per_sample"}
+            if task == "relation":
+                keys.add("violation_rate")
+                rates[task] = res["violation_rate"]
+                if not 0.0 <= res["violation_rate"] <= 1.0:
+                    raise AssertionError(f"violation rate {res['violation_rate']}")
+            if set(res) != keys or len(res["results"]) != num_samples:
+                raise AssertionError(f"{task} pickle: keys {sorted(res)}, "
+                                     f"{len(res['results'])} layouts")
+            for bbox, label in res["results"]:
+                if not (bbox.shape == (len(label), 4) and np.isfinite(bbox).all()):
+                    raise AssertionError(f"{task}: malformed layout {bbox.shape}")
+            results[task] = res["ms_per_sample"]
+        sec = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(f"{work_dir}/job/config.json") as f:
+        layers = json.load(f)["backbone"]["num_layers"]
+    launches = check_path_launches(
+        "sample_cli", path, layers * len(SAMPLE_TASKS) * 2 * num_timesteps)
+    out = {"phase": "sample_cli", "path": path, "tasks": list(SAMPLE_TASKS),
+           "ms_per_sample": results, "violation_rate": rates["relation"],
+           "num_samples": num_samples, "num_timesteps": num_timesteps,
+           "launches": launches, "seconds": sec}
     emit(out)
     return out
 
@@ -792,12 +1036,17 @@ def _check_layouts(resp, n, num_labels, labels=None):
             raise AssertionError(f"c task changed labels {labels} -> {lay['label']}")
 
 
+RELATIONS = [{"src": "canvas", "dst": 0, "loc": "top"},
+             {"src": 0, "dst": 1, "size": "larger", "loc": "bottom"},
+             {"src": 1, "dst": 2, "size": "smaller"}]
+
+
 def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
-                n_latency=10, smi="", fused=False) -> dict:
-    """The HTTP service; ``fused`` serves on the fused denoiser path (K4 +
-    K3 in place of K1 and the unfused FFN)."""
+                n_latency=10, smi="", path="default", relation=False) -> dict:
+    """The HTTP service on a denoiser ``path`` (default: K1 and the
+    unfused FFN; fused: K4 + K3; v2: K5; smajor: K6); ``relation`` adds
+    relation-guided requests."""
     from layoutdm_tpu_torch.factory import build_model, build_tokenizer
-    from layoutdm_tpu_torch.ops import attention, ffn
     from layoutdm_tpu_torch.serve_cli import (
         LayoutHTTPServer,
         LayoutService,
@@ -820,14 +1069,14 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
         del model
         service = LayoutService(
             job_dir, max_batch_size=max_batch, timestep_ladder=ladder, device=device,
-            fused_block=fused, fused_ffn=fused,
+            **path_switches(path),
         )
     httpd = LayoutHTTPServer(("127.0.0.1", 0), make_handler(service))
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
-        attention.LAUNCHES = attention.LAUNCHES_BLOCK = ffn.LAUNCHES_FFN = 0
+        reset_launches()
         steps0, runs0 = service.steps, service.runs
 
         r = _post(url, {"task": "unconditional", "batch_size": 1, "seed": 1,
@@ -846,6 +1095,18 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
         r = _post(url, {"task": "unconditional", "batch_size": 1, "seed": 2,
                         "num_timesteps": t_short})
         _check_layouts(r, 1, num_labels)
+        violation = None
+        if relation:
+            # guided by the relations on the categories alone; same seed,
+            # same layouts
+            req = {"task": "relation", "batch_size": 4, "seed": 11,
+                   "layout": {"label": layout["label"]}, "relations": RELATIONS}
+            a, b = _post(url, req), _post(url, req)
+            _check_layouts(a, 4, num_labels, layout["label"])
+            violation = a["violation_rate"]
+            if (a["layouts"], violation) != (b["layouts"], b["violation_rate"]) or not (
+                    0.0 <= violation <= 1.0):
+                raise AssertionError(f"relation answers differ or rate {violation}")
 
         # coalescing: 16 concurrent batch-1 requests, queued behind a long
         # run, must equal their serial results and share chain runs
@@ -886,30 +1147,24 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
                 ms.append((time.perf_counter() - t0) * 1e3)
             latency[f"T{T}_p50_ms"] = statistics.median(ms)
 
-        launches = attention.LAUNCHES
-        block_launches, ffn_launches = attention.LAUNCHES_BLOCK, ffn.LAUNCHES_FFN
         steps = service.steps - steps0
-        expected = cfg.backbone.num_layers * steps
-        want = (0, expected, expected) if fused else (expected, 0, 0)
-        if (launches, block_launches, ffn_launches) != want or expected == 0:
-            raise AssertionError(
-                f"K1/K4/K3 launches {(launches, block_launches, ffn_launches)} != {want} "
-                f"(num_layers x steps = {expected})"
-            )
+        launches = check_path_launches(
+            f"{path} serve (num_layers x {steps} steps)", path,
+            cfg.backbone.num_layers * steps,
+        )
     finally:
         httpd.shutdown()
         httpd.server_close()
         service.close()
     out = {
-        "phase": "fused_serve" if fused else "serve",
+        "phase": "serve" if path == "default" else f"{path}_serve",
         "path": service.model.denoiser_path,
         "requests_ok": True,
         "chain_runs": service.runs - runs0,
         "coalesced_burst_runs": burst_runs,
         "chain_steps": steps,
-        "kernel_launches": launches,
-        "block_launches": block_launches,
-        "ffn_launches": ffn_launches,
+        "launches": launches,
+        "relation_violation_rate": violation,
         "batch1_latency": latency,
         "max_batch_size": max_batch,
         "nvidia_smi": smi,
@@ -918,12 +1173,12 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
     return out
 
 
-def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", fused=False) -> dict:
+def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", path="default") -> dict:
     from layoutdm_tpu_torch.factory import build_model
 
     cfg = cfg or flagship_config("bfloat16")
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(4),
-                        fused_block=fused, fused_ffn=fused)
+                        **path_switches(path))
     seeds = torch.arange(batch, dtype=torch.int64)
     model.sample(seeds, batch, num_timesteps_eval=5)  # warm-up
     torch.cuda.synchronize()
@@ -935,7 +1190,7 @@ def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", fused=False) -
             and torch.isfinite(out["bbox"]).all()):
         raise AssertionError("throughput run produced malformed layouts")
     res = {
-        "phase": "fused_throughput" if fused else "throughput",
+        "phase": "throughput" if path == "default" else f"{path}_throughput",
         "path": model.denoiser_path,
         "batch": batch,
         "num_timesteps": model.q.num_timesteps,
@@ -962,26 +1217,39 @@ def main() -> int:
 
     dev = run(phase_device)
     smi = dev["nvidia_smi"]
-    kern = run(phase_kernel)
-    bwd = run(phase_train_kernel)
-    ffn_k = run(phase_ffn_kernel)
-    block_k = run(phase_block_kernel)
+    kernel_phases = {
+        "attention_qkv": run(phase_kernel),
+        "attention_qkv_bwd": run(phase_train_kernel),
+        "ln_ffn_residual": run(phase_ffn_kernel),
+        "attention_block": run(phase_block_kernel),
+        "attention_blockdiag": run(phase_blockdiag_kernel),
+        "attention_qkv_smajor": run(phase_smajor_kernel),
+    }
     run(phase_denoiser)
-    run(phase_fused_denoiser)
+    for path in ("fused", "v2", "smajor"):
+        run(phase_path_denoiser, path=path)
     tr = run(phase_train, smi=smi)
-    run(phase_train_cli)
-    serve = run(phase_serve, smi=smi)
-    run(phase_throughput, smi=smi)
-    fused_serve = run(phase_serve, smi=smi, fused=True)
-    run(phase_throughput, smi=smi, fused=True)
+    serves = {}
+    with tempfile.TemporaryDirectory() as work:
+        run(phase_train_cli, work_dir=work)
+        for path in ("default", "fused", "v2", "smajor"):
+            guided = path in ("v2", "smajor")
+            serves[path] = run(phase_serve, smi=smi, path=path, relation=guided,
+                               n_latency=5 if guided else 10)
+            run(phase_throughput, smi=smi, path=path)
+        run(phase_sample_cli, work_dir=work)
 
+    # launches on each kernel's main path
+    launches = {
+        "attention_qkv": serves["default"]["launches"]["K1"],
+        "attention_qkv_bwd": tr["launches_bwd"],
+        "ln_ffn_residual": serves["fused"]["launches"]["K3"],
+        "attention_block": serves["fused"]["launches"]["K4"],
+        "attention_blockdiag": serves["v2"]["launches"]["K5"],
+        "attention_qkv_smajor": serves["smajor"]["launches"]["K6"],
+    }
     rows = []
-    for name, phase, launches in (
-        ("attention_qkv", kern, serve["kernel_launches"]),
-        ("attention_qkv_bwd", bwd, tr["launches_bwd"]),
-        ("ln_ffn_residual", ffn_k, fused_serve["ffn_launches"]),
-        ("attention_block", block_k, fused_serve["block_launches"]),
-    ):
+    for name, phase in kernel_phases.items():
         t = phase["times"]["b1024_s125_bf16"]
         source, replaces = KERNELS[name]
         rows.append({
@@ -989,7 +1257,7 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches,
+            "launches": launches[name],
             "max_abs_err": max(phase["max_abs_err"].values()),
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],

@@ -1,4 +1,4 @@
-// Packed-qkv self-attention for Hopper (sm_90a).
+// Packed-qkv self-attention for Hopper (sm_90a): K1.
 //
 // Replaces: layoutdm_tpu/ops/attention.py::fused_attention_qkv, whose Pallas
 // kernel body is _attn_kernel_qkv.  Same function: per head h,
@@ -9,210 +9,17 @@
 // in bfloat16 mode the probabilities are rounded to bfloat16 before the p.v
 // product, as the TPU kernel does.
 //
-// What bounds it on this card: at the flagship shape (S = 125, hd = 58) one
-// (row, head) reads 3*S*hd*2 bytes (~43 KB in bf16) and does ~4*S^2*hd
-// FLOPs (~3.6 MFLOP), about 83 FLOP/byte -- below the ~295 FLOP/byte at
-// which the H100's bf16 tensor cores, not memory, would be the limit.  The
-// products here are two tiny GEMMs per head (125x58x125), so at batch 1 the
-// kernel is latency-bound and at batch 1024 it is bound by issue rate on the
-// CUDA cores and by shared-memory bandwidth.
-//
-// What this simple design does about it: one block per (batch row, query
-// tile of 16 rows, head).  K and V of the head are streamed through shared
-// memory in tiles of 32 keys with an online softmax (running max and sum per
-// query row), so the (S, S) score matrix never leaves registers and any S
-// fits (whole-head K+V at S = 500 in f32 would be 232 KB, over the 227 KB a
-// block may have).  Each warp owns 4 query rows; lane j scores key j of the
-// tile, the warp reduces max and sum with shuffles, and each lane then
-// accumulates the head dims lane, lane+32, ... of the output.  hd = 58 puts
-// head columns at 116-byte offsets in bf16, not 16-byte aligned, so loads are
-// scalar.  Left for later: vectorised and TMA loads, wgmma tensor-core
-// products, and reusing one block's K/V tile across all query tiles.
+// The kernel body, what bounds it and what its design does about that are
+// in attention_fwd.cuh, shared with K6 (the sequence-major slab).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
-
-namespace {
-
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBlockK = 32;                      // keys per shared-memory tile
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// the probability as the p.v product sees it: bf16-rounded in bf16 mode
-template <typename T>
-__device__ __forceinline__ float round_to_io(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to_io<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// HDP: head dim rounded up to a multiple of 32 (hd <= HDP <= 128)
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                         int S, int H, int hd, int n_qtiles, float scale) {
-  constexpr int kDimsPerLane = HDP / 32;
-  __shared__ float q_s[kBlockQ][HDP];
-  __shared__ float k_s[kBlockK][HDP + 1];  // +1: lane j reads row j, no bank conflicts
-  __shared__ float v_s[kBlockK][HDP];
-  __shared__ float p_s[kWarps][kRowsPerWarp][kBlockK];
-
-  const int D = H * hd;
-  const long long row_stride = 3LL * D;
-  const int b = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockQ;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const T* base = qkv + (long long)b * S * row_stride + (long long)h * hd;
-
-  // columns hd..HDP-1 of v_s stay zero: the tile loads below write d < hd
-  for (int i = tid; i < kBlockK * HDP; i += blockDim.x) v_s[i / HDP][i % HDP] = 0.f;
-  for (int i = tid; i < kBlockQ * hd; i += blockDim.x) {
-    const int r = i / hd, d = i % hd, qi = q0 + r;
-    q_s[r][d] = qi < S ? load_f32(base + qi * row_stride + d) : 0.f;
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // q_s and the zeroed v_s are written; last tile consumed
-    for (int i = tid; i < kBlockK * hd; i += blockDim.x) {
-      const int j = i / hd, d = i % hd, kj = k0 + j;
-      const bool ok = kj < S;
-      k_s[j][d] = ok ? load_f32(base + kj * row_stride + D + d) : 0.f;
-      v_s[j][d] = ok ? load_f32(base + kj * row_stride + 2 * D + d) : 0.f;
-    }
-    __syncthreads();
-
-    const int n_keys = min(kBlockK, S - k0);
-    const bool key_ok = lane < n_keys;
-    float s[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      const float kv = k_s[lane][d];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        s[r] = fmaf(q_s[warp * kRowsPerWarp + r][d], kv, s[r]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float sr = key_ok ? s[r] * scale : -INFINITY;
-      // lane 0 always holds a real key, so m_new is finite
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float p = key_ok ? expf(sr - m_new) : 0.f;
-      const float corr = expf(m[r] - m_new);  // 0 on the first tile
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] *= corr;
-      p_s[warp][r][lane] = round_to_io<T>(p);
-    }
-    __syncwarp();
-
-    for (int j = 0; j < n_keys; ++j) {
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const float vv = v_s[j][lane + 32 * i];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r)
-          acc[r][i] = fmaf(p_s[warp][r][j], vv, acc[r][i]);
-      }
-    }
-    __syncwarp();
-  }
-
-  T* obase = out + (long long)b * S * D + (long long)h * hd;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + warp * kRowsPerWarp + r;
-    if (qi >= S) continue;
-    const float inv = 1.f / l[r];
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) store_f32(obase + (long long)qi * D + d, acc[r][i] * inv);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_typed(const void* qkv, void* out, int B, int S, int H,
-                         int hd, float scale, cudaStream_t stream) {
-  const int n_qtiles = (S + kBlockQ - 1) / kBlockQ;
-  const dim3 grid((unsigned)((long long)B * n_qtiles), (unsigned)H);
-  const dim3 block(kWarps * 32);
-  const T* in = static_cast<const T*>(qkv);
-  T* o = static_cast<T*>(out);
-  const int hdp = (hd + 31) / 32 * 32;
-  switch (hdp) {
-    case 32:
-      attention_qkv_kernel<T, 32><<<grid, block, 0, stream>>>(in, o, S, H, hd, n_qtiles, scale);
-      break;
-    case 64:
-      attention_qkv_kernel<T, 64><<<grid, block, 0, stream>>>(in, o, S, H, hd, n_qtiles, scale);
-      break;
-    case 96:
-      attention_qkv_kernel<T, 96><<<grid, block, 0, stream>>>(in, o, S, H, hd, n_qtiles, scale);
-      break;
-    case 128:
-      attention_qkv_kernel<T, 128><<<grid, block, 0, stream>>>(in, o, S, H, hd, n_qtiles, scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "attention_fwd.cuh"
 
 // qkv: contiguous (B, S, 3*H*hd); out: contiguous (B, S, H*hd), same dtype.
 // dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
 extern "C" int attention_qkv_launch(const void* qkv, void* out, int B, int S,
                                     int H, int hd, float scale, int dtype,
                                     void* stream) {
-  if (B < 1 || S < 1 || H < 1 || H > 65535 || hd < 1 || hd > 128)
-    return (int)cudaErrorInvalidValue;
-  const long long n_qtiles = (S + kBlockQ - 1) / kBlockQ;
-  if ((long long)B * n_qtiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_typed<float>(qkv, out, B, S, H, hd, scale, st);
-  if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16>(qkv, out, B, S, H, hd, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const long long row = 3LL * H * hd;  // one token's q, k and v
+  return attention_fwd::launch<false>(qkv, nullptr, out, B, S, H, hd, S * row,
+                                      row, scale, dtype, stream);
 }

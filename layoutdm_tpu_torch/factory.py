@@ -86,27 +86,36 @@ def build_model(
     cfg: TrainConfig, tokenizer=None, device="cuda",
     generator: Optional[torch.Generator] = None,
     fused_block: Optional[bool] = None, fused_ffn: Optional[bool] = None,
+    attn_v2: Optional[bool] = None, smajor: Optional[bool] = None,
 ):
     """The model of ``cfg`` on ``device`` (CUDA unless asked for the CPU;
-    raises when CUDA is missing).  ``fused_block`` / ``fused_ffn`` select the
-    fused denoiser path (K4 / K3) for inference; each defaults to the JAX
-    package's own switch, ``LAYOUTDM_TPU_FUSED_BLOCK=1`` /
-    ``LAYOUTDM_TPU_FUSED_FFN=1`` in the environment."""
+    raises when CUDA is missing).  The denoiser's inference path: ``fused_block`` /
+    ``fused_ffn`` select the fused kernels (K4 / K3), ``attn_v2`` the
+    block-diagonal attention (K5) and ``smajor`` the S-major attention (K6);
+    each defaults to the JAX package's own switch in the environment
+    (``LAYOUTDM_TPU_FUSED_BLOCK=1``, ``LAYOUTDM_TPU_FUSED_FFN=1``,
+    ``LAYOUTDM_TPU_ATTN_V2=1``, ``LAYOUTDM_TPU_SMAJOR=1``).  Where several
+    are on, K4 wins over K5, and K5 over K6."""
     device = require_device(device)
     if tokenizer is None:
         tokenizer = build_tokenizer(cfg)
     name = cfg.model.name
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else torch.float32
-    if fused_block is None:
-        fused_block = os.environ.get("LAYOUTDM_TPU_FUSED_BLOCK") == "1"
-    if fused_ffn is None:
-        fused_ffn = os.environ.get("LAYOUTDM_TPU_FUSED_FFN") == "1"
+    switches = {
+        key: os.environ.get(env) == "1" if value is None else value
+        for key, env, value in (
+            ("fused_block", "LAYOUTDM_TPU_FUSED_BLOCK", fused_block),
+            ("fused_ffn", "LAYOUTDM_TPU_FUSED_FFN", fused_ffn),
+            ("attn_v2", "LAYOUTDM_TPU_ATTN_V2", attn_v2),
+            ("smajor", "LAYOUTDM_TPU_SMAJOR", smajor),
+        )
+    }
     if name == "layoutdm":
         from layoutdm_tpu_torch.models.layoutdm import LayoutDM
 
         return LayoutDM(
             cfg.backbone, tokenizer, cfg.model, dtype=dtype, device=device,
-            generator=generator, fused_block=fused_block, fused_ffn=fused_ffn,
+            generator=generator, **switches,
         )
     if name in _LATER:
         raise KeyError(f"model {name!r} is not ported yet; it comes with {_LATER[name]}")

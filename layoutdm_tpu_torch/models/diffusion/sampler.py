@@ -3,9 +3,11 @@
 `categorical_diffusion/base.py:205-371`).
 
 Each conditional task is a branch-free logit manipulation inside the chain:
-strong constraints by replacement, the refinement prior by addition, PAD
-suppression by a mask write.  The JAX package runs the chain as one
-``lax.scan``; here it is a Python loop over a host-side timestep ladder.
+strong constraints by replacement, the refinement prior by addition,
+relation guidance by a few gradient steps on the log-probs (a
+``guidance_fn``, `relation.guidance`), PAD suppression by a mask write.
+The JAX package runs the chain as one ``lax.scan``; here it is a Python
+loop over a host-side timestep ladder.
 
 Randomness: ``rng`` is either a ``torch.Generator`` (whole-batch noise) or a
 (B,) int64 tensor of row seeds (the per-row regime the server coalesces
@@ -36,7 +38,9 @@ from layoutdm_tpu_torch.ops.samplers import (
 class SamplerCond:
     """Conditioning inputs of the reverse chain.  A no-op cond (all-False
     masks, zero weak logits) is unconditional sampling.  ``weak_logits`` is
-    (B, S, V), or a broadcastable (B, 1, 1) zero when no prior applies."""
+    (B, S, V), or a broadcastable (B, 1, 1) zero when no prior applies.
+    ``relation`` (a `relation.guidance.RelationData`) carries the rows'
+    constraint graphs for relation guidance."""
 
     seq: torch.Tensor  # (B, S) int64 — user-specified token values
     strong_mask: torch.Tensor  # (B, S) bool — hard replacement positions
@@ -44,6 +48,7 @@ class SamplerCond:
     weak_mask: torch.Tensor  # (B, S) bool — where the prior applies
     pad_suppress: torch.Tensor  # (B, S) bool — forbid PAD here
     init_from_seq: bool = False
+    relation: Optional[tuple] = None  # RelationData, (B, E, ...) tensors
 
     TENSORS = ("seq", "strong_mask", "weak_logits", "weak_mask", "pad_suppress")
 
@@ -60,15 +65,21 @@ class SamplerCond:
 
     def to(self, device) -> "SamplerCond":
         return dataclasses.replace(
-            self, **{k: getattr(self, k).to(device) for k in self.TENSORS}
+            self, **{k: getattr(self, k).to(device) for k in self.TENSORS},
+            relation=None if self.relation is None else self.relation.to(device),
         )
 
     @classmethod
     def cat(cls, conds: Sequence["SamplerCond"]) -> "SamplerCond":
-        """Stack row groups (same init mode and weak-logit width)."""
+        """Stack row groups (same init mode, weak-logit width and, where
+        the rows carry graphs, edge capacity); graphs stay with their rows."""
+        graphs = [c.relation for c in conds]
+        if any(g is None for g in graphs) and any(g is not None for g in graphs):
+            raise ValueError("rows with and without relation graphs in one batch")
         return cls(
             **{k: torch.cat([getattr(c, k) for c in conds]) for k in cls.TENSORS},
             init_from_seq=conds[0].init_from_seq,
+            relation=None if graphs[0] is None else type(graphs[0]).cat(graphs),
         )
 
 
@@ -127,9 +138,9 @@ def sample_chain(
     guidance_fn: Optional[Callable] = None,
 ):
     """Run the reverse chain; returns final token ids (B, S) [and the
-    stacked per-step ids if requested]."""
-    if guidance_fn is not None:
-        raise NotImplementedError("relation guidance is not ported yet")
+    stacked per-step ids if requested].  ``guidance_fn(log_probs, t, cond)``
+    adjusts each step's log-probs after the task constraints and before the
+    PAD suppression, ``t`` the step's model timestep."""
     V = q.num_classes
     B, S = cond.seq.shape
     dev = cond.seq.device
@@ -162,6 +173,8 @@ def sample_chain(
         )
         mlp = torch.where(strong, strong_log, mlp)  # `base.py:246-251`
         mlp = mlp + weak  # `base.py:254-258`
+        if guidance_fn is not None:
+            mlp = guidance_fn(mlp, mt, cond)  # `base.py:261-269`
         mlp = torch.where(pad_off, LOG_EPS, mlp)  # `base.py:272-284`
 
         noise = None

@@ -4,8 +4,9 @@
 parameter parity with the baselines (`models/layoutdm.py:54`).
 
 The model lives on CUDA unless given ``device="cpu"``.  ``fused_block`` /
-``fused_ffn`` put the denoiser's inference on the fused kernels K4 / K3
-(``models.nn.Block``); training keeps the unfused path.
+``fused_ffn`` put the denoiser's inference on the fused kernels K4 / K3,
+``attn_v2`` / ``smajor`` its attention on K5 / K6 (``models.nn.Block``);
+training keeps the unfused path.
 
 Ported: ``q_type="constrained"`` with the flattened transformer.  The
 vanilla Q and the aggregated transformer come with later ports and raise
@@ -42,6 +43,8 @@ class LayoutDM:
         generator: Optional[torch.Generator] = None,
         fused_block: bool = False,
         fused_ffn: bool = False,
+        attn_v2: bool = False,
+        smajor: bool = False,
     ):
         cfg = model_cfg or ModelConfig()
         if cfg.q_type != "constrained":
@@ -74,6 +77,8 @@ class LayoutDM:
             dtype=dtype,
             fused_block=fused_block,
             fused_ffn=fused_ffn,
+            attn_v2=attn_v2,
+            smajor=smajor,
         )
         self._predict_start = make_predict_start(self.net, self.num_classes)
 
@@ -81,7 +86,14 @@ class LayoutDM:
     def denoiser_path(self) -> str:
         """The kernels the denoiser's inference runs."""
         block = self.net.backbone.layers[0]
-        attn = "fused attention block (K4)" if block.fused_block else "attention (K1)"
+        if block.fused_block:
+            attn = "fused attention block (K4)"
+        elif block.attn.attn_v2:
+            attn = "block-diagonal attention (K5)"
+        elif block.attn.smajor:
+            attn = "S-major attention (K6)"
+        else:
+            attn = "attention (K1)"
         ffn = "fused LN-FFN-residual (K3)" if block.fused_ffn else "unfused FFN"
         return f"{attn} + {ffn}"
 
@@ -143,13 +155,16 @@ class LayoutDM:
         """Run the reverse chain and return token ids (B, S) on the model's
         device.  ``rng``: a ``torch.Generator`` on any device (the noise is
         drawn there and moved to the model's device) or (B,) int64 row
-        seeds."""
+        seeds.  ``guidance_fn(log_probs, t, cond)`` adjusts each step's
+        log-probs (relation guidance); a guided chain runs under
+        ``torch.no_grad`` rather than inference mode, so the guidance can
+        differentiate its own loss, and the denoiser still sees no grad."""
         sampling = sampling or SamplingConfig()
         if cond is None:
             cond = SamplerCond.empty(batch_size, self.seq_len, self.device)
         if isinstance(rng, torch.Tensor):
             rng = rng.to(self.device)
-        with torch.inference_mode():
+        with torch.inference_mode() if guidance_fn is None else torch.no_grad():
             return sample_chain(
                 self._predict_start,
                 self.q,

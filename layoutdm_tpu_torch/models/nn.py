@@ -28,7 +28,10 @@ JAX ``Block``'s structure: norm1, then K4 (qkv projection, attention, out
 projection and the residual in one kernel), then K3 (norm2, linear1,
 activation, linear2 and the residual).  It runs only where the JAX gates
 admit it: no dropout, no autograd, and shapes the kernels take; training
-keeps K1/K2 and the unfused FFN.
+keeps K1/K2 and the unfused FFN.  Two more inference paths swap the
+attention kernel alone: ``attn_v2`` (K5, the one path with heads padded to
+64 lanes, as its kernel's function is defined on them) and ``smajor`` (K6);
+the order is K4, K5, K6, K1, as in the JAX ``SelfAttention``.
 """
 
 from __future__ import annotations
@@ -43,9 +46,18 @@ import torch.nn.functional as F
 from layoutdm_tpu_torch.configs import BackboneConfig
 from layoutdm_tpu_torch.ops.attention import (
     can_use_fused_block,
+    can_use_smajor,
     fused_attention_block,
     fused_attention_qkv,
     fused_attention_qkv_diff,
+    fused_attention_qkv_smajor,
+)
+from layoutdm_tpu_torch.ops.attention_blockdiag import (
+    blockdiag_attention,
+    can_use_blockdiag,
+    padded_head_dim,
+    scatter_out_weights,
+    scatter_qkv_weights,
 )
 from layoutdm_tpu_torch.ops.ffn import (
     ACTIVATIONS,
@@ -154,14 +166,26 @@ class AdaLayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """Dense, mask-free multi-head self-attention with a packed qkv
     projection; the packed slab feeds the kernels directly: K1 without
-    grad, K1 and K2 through autograd."""
+    grad, K1 and K2 through autograd.
+
+    Without grad and dropout, ``attn_v2`` (the JAX package's
+    ``LAYOUTDM_TPU_ATTN_V2``) runs K5 on heads zero-padded to 64 lanes by
+    a scatter of the projection weights on each forward, and ``smajor``
+    (``LAYOUTDM_TPU_SMAJOR``) runs K6 on the sequence-major slab, the bias
+    added in the kernel; K5 comes first, as in the JAX ``SelfAttention``.
+    Neither has a backward, in the JAX package or here."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_v2: bool = False, smajor: bool = False):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} not divisible by nhead {nhead}")
         self.nhead, self.dropout, self.dtype = nhead, dropout, dtype
+        self.head_dim = d_model // nhead
+        # the switches, where the kernels take these head widths (K5 checks
+        # the sequence length per call, as the JAX gate does)
+        self.attn_v2 = attn_v2 and can_use_blockdiag(self.head_dim, 0)
+        self.smajor = smajor and can_use_smajor(self.head_dim)
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out = nn.Linear(d_model, d_model)
 
@@ -178,6 +202,11 @@ class SelfAttention(nn.Module):
                 "attention-probability dropout (backbone.dropout > 0 in "
                 "training) is not ported yet: ROADMAP Queue 1 item 4"
             )
+        inference = dropout is None and not torch.is_grad_enabled()
+        if inference and self.attn_v2 and can_use_blockdiag(self.head_dim, x.shape[1]):
+            return self._blockdiag(x)
+        if inference and self.smajor:
+            return self._smajor(x)
         qkv = _linear(x, self.qkv, self.dtype)
         if torch.is_grad_enabled() and qkv.requires_grad:
             o = fused_attention_qkv_diff(qkv, self.nhead)
@@ -185,12 +214,31 @@ class SelfAttention(nn.Module):
             o = fused_attention_qkv(qkv, self.nhead)
         return _linear(o, self.out, self.dtype)
 
+    def _blockdiag(self, x: torch.Tensor) -> torch.Tensor:
+        """K5 between the padded-head projections (JAX `nn.py:271-287`)."""
+        dt, H, hd = self.dtype, self.nhead, self.head_dim
+        hp = padded_head_dim(hd)
+        wp, bp = scatter_qkv_weights(self.qkv.weight.to(dt), self.qkv.bias.to(dt), H, hd, hp)
+        o = blockdiag_attention(F.linear(x.to(dt), wp, bp), H, hp, 1.0 / math.sqrt(hd))
+        wop = scatter_out_weights(self.out.weight.to(dt), H, hd, hp)
+        return F.linear(o, wop, self.out.bias.to(dt))
+
+    def _smajor(self, x: torch.Tensor) -> torch.Tensor:
+        """K6 on the bias-free projection of the sequence-major input (JAX
+        `nn.py:335-349`).  The projection reads x through a sequence-major
+        view: on the card one strided batched GEMM, with no copy of x."""
+        dt = self.dtype
+        qkv_sb = F.linear(x.to(dt).transpose(0, 1), self.qkv.weight.to(dt))
+        o = fused_attention_qkv_smajor(qkv_sb, self.qkv.bias, self.nhead)
+        return _linear(o, self.out, dt)
+
 
 class Block(nn.Module):
     """Pre-norm encoder block (`transformer_utils.py:103-210`)."""
 
     def __init__(self, cfg: BackboneConfig, dtype=torch.float32,
-                 fused_block: bool = False, fused_ffn: bool = False):
+                 fused_block: bool = False, fused_ffn: bool = False,
+                 attn_v2: bool = False, smajor: bool = False):
         super().__init__()
         self.dtype = dtype
         self.dropout = cfg.dropout
@@ -208,7 +256,7 @@ class Block(nn.Module):
             raise NotImplementedError("AdaInsNorm is not ported yet")
         else:
             self.norm1 = AdaLayerNorm(cfg.d_model, cfg.diffusion_step, tt)
-        self.attn = SelfAttention(cfg.d_model, cfg.nhead, cfg.dropout, dtype)
+        self.attn = SelfAttention(cfg.d_model, cfg.nhead, cfg.dropout, dtype, attn_v2, smajor)
         self.linear1 = nn.Linear(cfg.d_model, cfg.dim_feedforward)
         self.linear2 = nn.Linear(cfg.dim_feedforward, cfg.d_model)
         self.norm2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
@@ -244,12 +292,9 @@ class Block(nn.Module):
 class TransformerEncoder(nn.Module):
     """Stack of Blocks threading the timestep (`transformer_utils.py:213-246`)."""
 
-    def __init__(self, cfg: BackboneConfig, dtype=torch.float32,
-                 fused_block: bool = False, fused_ffn: bool = False):
+    def __init__(self, cfg: BackboneConfig, dtype=torch.float32, **switches):
         super().__init__()
-        self.layers = nn.ModuleList(
-            Block(cfg, dtype, fused_block, fused_ffn) for _ in range(cfg.num_layers)
-        )
+        self.layers = nn.ModuleList(Block(cfg, dtype, **switches) for _ in range(cfg.num_layers))
 
     def forward(self, x: torch.Tensor, timestep: torch.Tensor,
                 dropout: Optional[Dropout] = None) -> torch.Tensor:
@@ -310,9 +355,10 @@ class CategoricalTransformer(nn.Module):
         pos_emb: str = "elem_attr",
         n_attr_per_elem: int = 5,
         dtype=torch.float32,
-        fused_block: bool = False,
-        fused_ffn: bool = False,
+        **switches,
     ):
+        """``switches``: the denoiser-path keywords of `Block`
+        (``fused_block``, ``fused_ffn``, ``attn_v2``, ``smajor``)."""
         super().__init__()
         d = backbone.d_model
         self.dtype = dtype
@@ -321,7 +367,7 @@ class CategoricalTransformer(nn.Module):
             self.pos = PositionalEmbedding(d, max_token_length)
         else:
             self.pos = ElementPositionalEmbedding(d, max_token_length, n_attr_per_elem)
-        self.backbone = TransformerEncoder(backbone, dtype, fused_block, fused_ffn)
+        self.backbone = TransformerEncoder(backbone, dtype, **switches)
         self.head_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.head = nn.Linear(d, num_classes, bias=False)
 

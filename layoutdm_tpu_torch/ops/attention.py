@@ -1,8 +1,9 @@
 """Self-attention kernels: K1 (packed-qkv forward), K2 (its backward),
-K4 (the whole attention block), their plain versions, and the autograd
-binding of K1 and K2 (port of ``layoutdm_tpu/ops/attention.py::
-fused_attention_qkv``, ``fused_attention_qkv_bwd``, the custom VJP
-``fused_attention_qkv_diff`` and ``fused_attention_block``).
+K4 (the whole attention block), K6 (K1 on a sequence-major slab), their
+plain versions, and the autograd binding of K1 and K2 (port of
+``layoutdm_tpu/ops/attention.py::fused_attention_qkv``,
+``fused_attention_qkv_bwd``, the custom VJP ``fused_attention_qkv_diff``,
+``fused_attention_block`` and ``fused_attention_qkv_smajor``).
 
 ``fused_attention_qkv`` takes the denoiser's packed (B, S, 3D) projection
 output, heads as ``[h*hd]`` column blocks of q, k and v, and returns
@@ -20,6 +21,10 @@ x + attn(x W_qkvᵀ + b_qkv) W_outᵀ + b_out, the residual added in float32
 before the one final rounding (the unfused path rounds the attention
 output first).  The TPU package's weight scatter to 64-lane heads is a
 layout trick with no counterpart here.
+
+``fused_attention_qkv_smajor`` (K6, ``csrc/attention_smajor.cu``) is K1 on
+a sequence-major (S, B, 3D) slab with the qkv bias added to the slab in the
+io dtype, returning (B, S, D) as K1 does.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from layoutdm_tpu_torch.ops.cuda_build import BuiltLibrary, load_library
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 LAUNCHES_BLOCK = 0
+LAUNCHES_SMAJOR = 0
 
 MAX_HEAD_DIM = 128
 # K4 stages one head (<= 64 wide) and a (64, D) row tile in shared memory
@@ -222,6 +228,78 @@ def fused_attention_qkv_diff(
 ) -> torch.Tensor:
     """Differentiable `fused_attention_qkv`: its gradient is K2."""
     return _AttentionQKV.apply(qkv, num_heads, scale)
+
+
+def can_use_smajor(head_dim: int) -> bool:
+    """Shapes K6 takes: K1's.  The JAX gate refuses every flagship width
+    because eight S-major rows overflow the TPU's scoped VMEM; that limit
+    has no counterpart here."""
+    return head_dim <= MAX_HEAD_DIM
+
+
+def _split_smajor(qkv_sb: torch.Tensor, bias: torch.Tensor, num_heads: int):
+    if qkv_sb.dim() != 3 or qkv_sb.shape[-1] % 3:
+        raise ValueError(f"qkv_sb must be (S, B, 3D), got {tuple(qkv_sb.shape)}")
+    S, B, D3 = qkv_sb.shape
+    if tuple(bias.shape) != (D3,):
+        raise ValueError(f"bias must be ({D3},), got {tuple(bias.shape)}")
+    D = D3 // 3
+    if D % num_heads:
+        raise ValueError(f"d_model {D} not divisible by num_heads {num_heads}")
+    return S, B, D, D // num_heads
+
+
+def attention_qkv_smajor_reference(
+    qkv_sb: torch.Tensor, bias: torch.Tensor, num_heads: int, scale: float = 0.0
+) -> torch.Tensor:
+    """Plain version of K6: the bias added to the slab in the io dtype (one
+    rounding), then `attention_qkv_reference` on the batch-major view.
+    Returns (B, S, D)."""
+    _split_smajor(qkv_sb, bias, num_heads)
+    x = (qkv_sb + bias.to(qkv_sb.dtype)).transpose(0, 1)
+    return attention_qkv_reference(x, num_heads, scale)
+
+
+@functools.cache
+def smajor_kernel_library() -> BuiltLibrary:
+    """Build (first call) and bind the S-major kernel K6."""
+    built = load_library("attention_smajor", ["attention_smajor.cu"])
+    fn = built.lib.attention_smajor_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv_sb, bias, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B S H hd
+        ctypes.c_float, ctypes.c_int,  # scale, dtype code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def fused_attention_qkv_smajor(
+    qkv_sb: torch.Tensor, bias: torch.Tensor, num_heads: int, scale: float = 0.0
+) -> torch.Tensor:
+    """Attention on the sequence-major packed slab ``qkv_sb`` (S, B, 3D)
+    plus its qkv bias (3D,), any float dtype (cast to the slab's); returns
+    (B, S, D).  ``scale`` overrides 1/sqrt(hd)."""
+    global LAUNCHES_SMAJOR
+    S, B, D, hd = _split_smajor(qkv_sb, bias, num_heads)
+    if qkv_sb.device.type == "cpu":
+        return attention_qkv_smajor_reference(qkv_sb, bias, num_heads, scale)
+    _check_kernel_input(qkv_sb, hd)
+    scale = scale or 1.0 / math.sqrt(hd)
+    bias = bias.to(qkv_sb.device, qkv_sb.dtype).contiguous()
+    out = torch.empty((B, S, D), dtype=qkv_sb.dtype, device=qkv_sb.device)
+    fn = smajor_kernel_library().lib.attention_smajor_launch
+    with torch.cuda.device(qkv_sb.device):
+        stream = torch.cuda.current_stream(qkv_sb.device).cuda_stream
+        err = fn(
+            qkv_sb.data_ptr(), bias.data_ptr(), out.data_ptr(), B, S, num_heads, hd,
+            float(scale), _DTYPE_CODE[qkv_sb.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention_smajor kernel launch failed: CUDA error {err}")
+    LAUNCHES_SMAJOR += 1
+    return out
 
 
 def can_use_fused_block(head_dim: int, d_model: int) -> bool:

@@ -1,33 +1,48 @@
 """Layout-generation HTTP service (port of ``layoutdm_tpu/serve_cli.py``).
 
     python -m layoutdm_tpu_torch.serve_cli job_dir=<dir> port=8700 \
-        [max_batch_size=64] [timestep_ladder=25,100] [device=cuda|cpu]
+        [max_batch_size=64] [timestep_ladder=25,100] [max_edges=32] [device=cuda|cpu]
 
 The device is CUDA unless ``device=cpu`` is given; without CUDA the
-service refuses to start rather than fall back to the CPU.  With the JAX
-package's switches ``LAYOUTDM_TPU_FUSED_BLOCK=1`` and
-``LAYOUTDM_TPU_FUSED_FFN=1`` in the environment the denoiser runs on the
-fused kernels (K4 attention block, K3 LayerNorm-FFN-residual); the startup
-log and ``/healthz`` name the path.
+service refuses to start rather than fall back to the CPU.  The denoiser
+path follows the JAX package's switches in the environment
+(`factory.build_model`): ``LAYOUTDM_TPU_FUSED_BLOCK=1`` /
+``LAYOUTDM_TPU_FUSED_FFN=1`` run the fused kernels (K4 attention block, K3
+LayerNorm-FFN-residual), ``LAYOUTDM_TPU_ATTN_V2=1`` the block-diagonal
+attention (K5), ``LAYOUTDM_TPU_SMAJOR=1`` the S-major attention (K6); the
+startup log and ``/healthz`` name the path.
 
 Endpoints
 ---------
 GET  /healthz   -> {"status": "ok", "model": ..., "dataset": ..., ...}
 POST /generate  -> {"layouts": [{"label": [...], "bbox": [[x,y,w,h], ...]}],
-                    "ms_per_sample": float, "seed": int}
+                    "ms_per_sample": float, "seed": int,
+                    "violation_rate": float (task "relation" only: the share
+                    of the requested relations the layouts break)}
      request: {"task": "unconditional" | "c" | "cwh" | "partial"
-                       | "refinement",
+                       | "refinement" | "relation",
                "batch_size": int (<= max_batch_size), "seed": int,
                "num_timesteps": int (a rung of the service's ladder),
-               "layout": {"label": [...], "bbox": [[x,y,w,h], ...]}}
-     "relation" answers HTTP 400: relation guidance is not ported yet.
+               "layout": {"label": [...], "bbox": [[x,y,w,h], ...]}
+                         ("bbox" optional for "relation"),
+               "relations": [{"src": int | "canvas", "dst": int,
+                              "size": "smaller" | "equal" | "larger",
+                              "loc": "left" | "top" | "right" | "bottom"
+                                     | "center"}, ...]
+                   (task "relation": at most max_edges; 0-based indices
+                   into layout.label; "dst is <size>/<loc> of src", and with
+                   src "canvas", loc is dst's band of the canvas)}
 
 Design (as in the JAX service): every request is lowered to per-row
 (cond, seed) pairs; one device thread, the coalescer, packs same-lane
-requests (lane = timestep count x init mode x refinement prior) into one run
-of the reverse chain, padded to ``max_batch_size`` rows.  Sampling is
-row-seeded, so a row's result depends only on its own seed and a request's
-result does not depend on its batch-mates.  The JAX service compiles one
+requests (lane = timestep count x guided x init mode x refinement prior)
+into one run of the reverse chain, padded to ``max_batch_size`` rows.
+Relation requests carry their graphs in the cond, padded to
+``max_edges``, and run guided (`relation.guidance`); a guided run never
+holds an unguided row.  Sampling is row-seeded, so a row's result depends
+only on its own seed and a request's result does not depend on its
+batch-mates (guidance takes the mean penalty over the fixed run width,
+whatever the other rows hold).  The JAX service compiles one
 program per lane; here each lane is the same eager chain, reused.
 """
 
@@ -44,13 +59,68 @@ import numpy as np
 import torch
 
 from layoutdm_tpu_torch.configs import SamplingConfig
+from layoutdm_tpu_torch.data.relations import REL_UNK, pad_edges
+from layoutdm_tpu_torch.data.transforms import AddCanvasElement
+from layoutdm_tpu_torch.eval.metrics import compute_violation
 from layoutdm_tpu_torch.models.diffusion.sampler import SamplerCond, timestep_ladder
+from layoutdm_tpu_torch.relation.guidance import RelationData, make_relation_guidance
 from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
 from layoutdm_tpu_torch.utils.device import require_device
 
 logger = logging.getLogger(__name__)
 
 COND_TASKS = ("c", "cwh", "partial", "refinement", "relation")
+
+# request-schema names of the bit-encoded relations (`data.relations`
+# RelSize / RelLoc values)
+_SIZE_REL = {"smaller": 1, "equal": 2, "larger": 3}
+_LOC_REL = {"left": 5, "top": 6, "right": 7, "bottom": 8, "center": 9}
+
+
+def _parse_relations(relations, n_elements: int, max_edges: int):
+    """A request's relation list -> padded (edge_index, edge_attr,
+    edge_mask) over the canvas-prepended indexing (canvas 0, the request's
+    element i at i + 1)."""
+    if not isinstance(relations, (list, tuple)):
+        raise ValueError("'relations' must be a list of constraint objects")
+    if len(relations) > max_edges:
+        raise ValueError(f"too many relations: {len(relations)} > max_edges ({max_edges})")
+    ei, ea = [], []
+    for k, r in enumerate(relations):
+        if not isinstance(r, dict):
+            raise ValueError(f"relation {k}: expected an object")
+        src, dst = r.get("src"), r.get("dst")
+        if dst == "canvas":
+            raise ValueError(
+                f"relation {k}: 'canvas' is only valid as src (constraints "
+                "place elements relative to the canvas, not vice versa)"
+            )
+
+        def element_index(name, v):
+            # check the raw value: -1 must not wrap into the canvas slot
+            if not isinstance(v, int) or isinstance(v, bool) or not 0 <= v < n_elements:
+                raise ValueError(
+                    f"relation {k}: {name} out of range (0..{n_elements - 1} or 'canvas')"
+                )
+            return v + 1
+
+        si = 0 if src == "canvas" else element_index("src", src)
+        di = element_index("dst", dst)
+        if si == di:
+            raise ValueError(f"relation {k}: src == dst")
+        size, loc = r.get("size"), r.get("loc")
+        if size is not None and size not in _SIZE_REL:
+            raise ValueError(f"relation {k}: unknown size '{size}' (one of {'/'.join(_SIZE_REL)})")
+        if loc is not None and loc not in _LOC_REL:
+            raise ValueError(f"relation {k}: unknown loc '{loc}' (one of {'/'.join(_LOC_REL)})")
+        attr = (1 << (_SIZE_REL[size] if size else 0)) | (1 << (_LOC_REL[loc] if loc else 4))
+        if attr == REL_UNK:
+            raise ValueError(f"relation {k}: needs 'size' and/or 'loc'")
+        ei.append((si, di))
+        ea.append(attr)
+    return pad_edges(
+        np.asarray(ei, np.int32).reshape(-1, 2), np.asarray(ea, np.int32), max_edges
+    )
 
 
 def _row_seeds(seed: int, n: int) -> np.ndarray:
@@ -105,9 +175,12 @@ class LayoutService:
         request_timeout_s: float = 600.0,
         max_queued_requests: int = 256,
         device="cuda",
-        fused_block: Optional[bool] = None,
-        fused_ffn: Optional[bool] = None,
+        max_edges: int = 32,
+        **switches,
     ):
+        """``switches``: the denoiser-path keywords of
+        `factory.build_model` (``fused_block``, ``fused_ffn``, ``attn_v2``,
+        ``smajor``), which override the environment's switches."""
         from layoutdm_tpu_torch.factory import build_model, build_tokenizer
         from layoutdm_tpu_torch.utils.params import load_job
 
@@ -115,10 +188,7 @@ class LayoutService:
         self.train_cfg.data.pad_until_max = True
         self.device = require_device(device)
         self.tokenizer = build_tokenizer(self.train_cfg)
-        self.model = build_model(
-            self.train_cfg, self.tokenizer, self.device,
-            fused_block=fused_block, fused_ffn=fused_ffn,
-        )
+        self.model = build_model(self.train_cfg, self.tokenizer, self.device, **switches)
         self.model.net.load_state_dict(state_dict)
         self.sampling = sampling or SamplingConfig(name="random")
         self.B = int(max_batch_size)
@@ -131,6 +201,10 @@ class LayoutService:
                     f"timestep_ladder rung {t} out of range: must satisfy "
                     f"0 < t <= num_timesteps ({T_train}) of the trained model"
                 )
+        # relation requests: a fixed edge capacity, and one guidance function
+        # that reads each run's graphs from its cond
+        self.max_edges = int(max_edges)
+        self._guidance = make_relation_guidance(self.tokenizer, self.sampling)
         self._counter = 0
         self._counter_lock = threading.Lock()  # handlers run threaded
         self.request_timeout_s = float(request_timeout_s)
@@ -148,14 +222,16 @@ class LayoutService:
         self._worker.start()
 
         dummy_layout = {"label": [0], "bbox": [[0.5, 0.5, 0.2, 0.2]]}
+        dummy_rel = [{"src": "canvas", "dst": 0, "loc": "top"}]
         for task in warm_tasks:
             lay = None if task == "unconditional" else dummy_layout
+            rel = dummy_rel if task == "relation" else None
             logger.info("warmup: %s", task)
-            self.generate(task, min(4, self.B), seed=0, layout=lay)
+            self.generate(task, min(4, self.B), seed=0, layout=lay, relations=rel)
             for t in self.ladder:
                 logger.info("warmup: %s T=%d", task, t)
                 self.generate(task, min(4, self.B), seed=0, layout=lay,
-                              num_timesteps=t)
+                              num_timesteps=t, relations=rel)
         logger.info("service ready (batch=%d, device=%s, denoiser: %s)",
                     self.B, self.device, self.model.denoiser_path)
 
@@ -194,24 +270,26 @@ class LayoutService:
                 for p in take:
                     p.event.set()
 
-    def _pad_cond(self, n: int, init_from_seq: bool, has_weak: bool = False):
+    def _pad_cond(self, n: int, guided: bool, init_from_seq: bool, has_weak: bool = False):
         """No-op rows that pad a coalesced batch to the run width; the weak
         prior rides as a broadcastable (n, 1, 1) zero unless the lane is
-        refinement."""
+        refinement, and a guided lane's padding rows carry empty graphs."""
         S, V = self.model.seq_len, self.model.num_classes
         wshape = (n, S, V) if has_weak else (n, 1, 1)
         c = SamplerCond.empty(n, S, "cpu")
         c.weak_logits = torch.zeros(wshape)
         c.init_from_seq = init_from_seq
+        if guided:
+            c.relation = RelationData.empty(n, self.max_edges)
         return c
 
     def _run_batch(self, lane, pendings: List[_Pending]):
-        t_eval, init_from_seq, has_weak = lane
+        t_eval, guided, init_from_seq, has_weak = lane
         n_rows = sum(len(p.seeds) for p in pendings)
         conds = [p.cond for p in pendings]
         seeds = [p.seeds for p in pendings]
         if n_rows < self.B:
-            conds.append(self._pad_cond(self.B - n_rows, init_from_seq, has_weak))
+            conds.append(self._pad_cond(self.B - n_rows, guided, init_from_seq, has_weak))
             seeds.append(np.zeros(self.B - n_rows, np.uint32))
         cond = SamplerCond.cat(conds).to(self.device)
         row_seeds = torch.as_tensor(
@@ -220,7 +298,7 @@ class LayoutService:
         t0 = time.perf_counter()
         ids = self.model.sample_ids(
             row_seeds, self.B, cond=cond, sampling=self.sampling,
-            num_timesteps_eval=t_eval,
+            num_timesteps_eval=t_eval, guidance_fn=self._guidance if guided else None,
         )
         out = {k: v.cpu().numpy() for k, v in self.tokenizer.decode(ids).items()}
         sec = time.perf_counter() - t0
@@ -241,14 +319,20 @@ class LayoutService:
         self._worker.join(timeout=5)
 
     # -- request handling ----------------------------------------------------
-    def _build_cond(self, task: str, layout: Optional[Dict], B: int):
-        """Task cond on the CPU, B rows (None for unconditional)."""
+    def _build_cond(self, task: str, layout: Optional[Dict], B: int, relations=None):
+        """(task cond on the CPU with B rows, or None for unconditional;
+        for "relation", the canvas-prepended labels and padded edges that
+        guide the run and score its answer, else None)."""
         if task == "unconditional":
-            return None
+            return None, None
         if layout is None:
             raise ValueError(f"task '{task}' requires a 'layout'")
         label = np.asarray(layout["label"], np.int64)
-        bbox = np.asarray(layout["bbox"], np.float32)
+        if task == "relation" and "bbox" not in layout:
+            # relation conditions on the categories alone
+            bbox = np.zeros(label.shape + (4,), np.float32)
+        else:
+            bbox = np.asarray(layout["bbox"], np.float32)
         if label.ndim == 1:
             label, bbox = label[None], bbox[None]
         if bbox.shape != label.shape + (4,):
@@ -276,14 +360,22 @@ class LayoutService:
         cond = get_cond(
             batch, self.tokenizer, task, generator=torch.Generator().manual_seed(0)
         )
-        return to_sampler_cond(cond, self.tokenizer, self.sampling)
+        sc = to_sampler_cond(cond, self.tokenizer, self.sampling)
+        if task != "relation":
+            return sc, None
+        # the canvas-prepended indexing of the training and eval paths
+        edges = _parse_relations(relations or [], label.shape[1], self.max_edges)
+        graph = {
+            "label": AddCanvasElement()(None, dict(batch))["label"],
+            **{k: np.repeat(v[None], B, axis=0) for k, v in edges.items()},
+        }
+        sc.relation = RelationData.from_batch(graph)
+        return sc, graph
 
     def generate(
         self, task: str, batch_size: int, seed: Optional[int], layout,
-        num_timesteps: Optional[int] = None,
+        num_timesteps: Optional[int] = None, relations=None,
     ) -> Dict:
-        if task == "relation":
-            raise ValueError("task 'relation' is not yet ported")
         if task != "unconditional" and task not in COND_TASKS:
             raise ValueError(
                 f"unknown task '{task}' (one of unconditional/{'/'.join(COND_TASKS)})"
@@ -303,16 +395,19 @@ class LayoutService:
             with self._counter_lock:
                 self._counter += 1
                 seed = self._counter
+        if task == "relation" and not relations:
+            raise ValueError("task 'relation' requires a non-empty 'relations' list")
         seed32 = int(seed) & 0x7FFFFFFF
 
         has_weak = task == "refinement"
-        cond = self._build_cond(task, layout, B)
+        guided = task == "relation"
+        cond, graph = self._build_cond(task, layout, B, relations)
         if cond is None:
-            cond = self._pad_cond(B, False)
+            cond = self._pad_cond(B, False, False)
         elif not has_weak:
             cond.weak_logits = torch.zeros((B, 1, 1))
         t_eval = int(num_timesteps) if num_timesteps is not None else None
-        lane = (t_eval, bool(cond.init_from_seq), has_weak)
+        lane = (t_eval, guided, bool(cond.init_from_seq), has_weak)
 
         p = _Pending(cond, _row_seeds(seed32, B))
         with self._cv:
@@ -336,12 +431,22 @@ class LayoutService:
             }
             for i in range(B)
         ]
-        return {
+        resp = {
             "layouts": layouts,
             # wall time of the (possibly shared) run over the full run width
             "ms_per_sample": round(p.sec * 1e3 / self.B, 2),
             "seed": seed32,
         }
+        if graph is not None:
+            # the share of the requested relations the layouts break
+            gen = np.zeros(graph["label"].shape + (4,), np.float32)
+            gen[:, 0] = AddCanvasElement.x
+            gen[:, 1:] = bbox
+            v = compute_violation(gen, graph["label"], graph["edge_index"],
+                                  graph["edge_attr"], graph["edge_mask"])
+            v = v[~np.isnan(v)]
+            resp["violation_rate"] = round(float(v.mean()), 4) if v.size else 0.0
+        return resp
 
     def info(self) -> Dict:
         return {
@@ -353,6 +458,7 @@ class LayoutService:
             "max_elements": self.tokenizer.max_elements,
             "max_batch_size": self.B,
             "timestep_ladder": list(self.ladder),
+            "max_edges": self.max_edges,
             "coalesce_window_ms": self.coalesce_window_ms,
             "program_runs": self.runs,
         }
@@ -387,6 +493,7 @@ def make_handler(service: LayoutService):
                     req.get("seed"),
                     req.get("layout"),
                     req.get("num_timesteps"),
+                    req.get("relations"),
                 )
                 self._send(200, out)
             except ServiceOverloaded as e:
@@ -428,6 +535,7 @@ def make_server(argv=None) -> Tuple[LayoutService, LayoutHTTPServer]:
         request_timeout_s=float(kv.get("request_timeout_s", 600.0)),
         max_queued_requests=int(kv.get("max_queued_requests", 256)),
         device=device,
+        max_edges=int(kv.get("max_edges", 32)),
     )
     server = LayoutHTTPServer(
         (kv.get("host", "127.0.0.1"), int(kv.get("port", 8700))),

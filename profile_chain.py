@@ -6,10 +6,12 @@ For each batch size, the flagship LayoutDM (Rico25 width, bfloat16, random
 weights from a seed) runs a chain of ``--steps`` steps in the service's
 per-row-seed regime with the random sampler: once to warm up, once timed,
 once under ``torch.profiler``.  The denoiser path follows the JAX
-package's switches: with ``LAYOUTDM_TPU_FUSED_BLOCK=1`` and
-``LAYOUTDM_TPU_FUSED_FFN=1`` in the environment it is the fused path (K4 +
-K3), else K1 and the unfused FFN; ``path`` names it.  Per batch size it
-reports:
+package's switches in the environment (`factory.build_model`):
+``LAYOUTDM_TPU_FUSED_BLOCK=1`` and ``LAYOUTDM_TPU_FUSED_FFN=1`` give the
+fused path (K4 + K3), ``LAYOUTDM_TPU_ATTN_V2=1`` the block-diagonal
+attention (K5), ``LAYOUTDM_TPU_SMAJOR=1`` the S-major attention (K6), none
+of them K1 and the unfused FFN; ``path`` names it in every row.  Per batch
+size it reports:
 
 - ``wall_ms_per_step``: host clock around a chain run without the
   profiler, synchronised;

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the hand-written kernels (K1 attention forward,
-K2 its backward, K3 LayerNorm-FFN-residual, K4 attention block) against
-their plain versions, the denoiser (both paths) and the per-row noise on
-the card against the CPU.  Every test here is marked ``cuda`` and skips without a card.
+K2 its backward, K3 LayerNorm-FFN-residual, K4 attention block, K5
+padded-head attention, K6 sequence-major attention) against their plain
+versions, the denoiser (every path) and the per-row noise on the card
+against the CPU.  Every test here is marked ``cuda`` and skips without a card.
 
 This file imports no jax and nothing of the JAX package (as
 the port does), so it also runs on a GPU host without jax:
@@ -16,7 +17,7 @@ import torch
 from layoutdm_tpu_torch.configs import BackboneConfig, build_train_config
 from layoutdm_tpu_torch.factory import build_model
 from layoutdm_tpu_torch.models.nn import make_transformer
-from layoutdm_tpu_torch.ops import attention
+from layoutdm_tpu_torch.ops import attention, attention_blockdiag
 from layoutdm_tpu_torch.ops.attention import (
     attention_qkv_bwd_reference,
     attention_qkv_reference,
@@ -371,4 +372,103 @@ def test_fused_denoiser_on_card_matches_cpu(cuda):
         want = cpu(ids, t)
         got = gpu(ids.to(cuda), t.to(cuda)).cpu()
     assert (attention.LAUNCHES_BLOCK, ffn.LAUNCHES_FFN) == (launches[0] + 2, launches[1] + 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
+
+
+def _padded_slab(rs, B, S, H, hd, hp):
+    x = np.zeros((B, S, 3, H, hp), np.float32)
+    x[..., :hd] = rs.randn(B, S, 3, H, hd)
+    return x.reshape(B, S, 3 * H * hp)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,hd,hp,dtype",
+    [
+        (2, 125, 8, 58, 64, torch.float32),
+        (3, 125, 8, 58, 64, torch.bfloat16),
+        (1, 500, 8, 58, 64, torch.float32),
+        (2, 500, 8, 58, 64, torch.bfloat16),
+        (3, 21, 8, 64, 64, torch.float32),
+        (2, 21, 4, 100, 128, torch.bfloat16),
+    ],
+)
+def test_blockdiag_kernel_matches_plain_version(cuda, B, S, H, hd, hp, dtype):
+    """K5 against its plain version; the padded output lanes exactly 0."""
+    qkv = torch.as_tensor(_padded_slab(np.random.RandomState(7), B, S, H, hd, hp))
+    qkv = qkv.to(cuda, dtype)
+    scale = hd ** -0.5
+    launches = attention_blockdiag.LAUNCHES_BLOCKDIAG
+    got = attention_blockdiag.blockdiag_attention(qkv, H, hp, scale)
+    torch.cuda.synchronize()
+    assert attention_blockdiag.LAUNCHES_BLOCKDIAG == launches + 1
+    want = attention_blockdiag.blockdiag_attention_reference(qkv, H, hp, scale)
+    assert got.dtype == dtype and got.shape == (B, S, H * hp)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert got.view(B, S, H, hp)[..., hd:].count_nonzero().item() == 0
+
+
+def test_blockdiag_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError):  # head pad 96 is not one the kernel takes
+        attention_blockdiag.blockdiag_attention(torch.zeros(1, 4, 3 * 96, device=cuda), 1, 96, 0.1)
+    with pytest.raises(ValueError):  # over the score tile's sequence limit
+        attention_blockdiag.blockdiag_attention(
+            torch.zeros(1, attention_blockdiag.MAX_SEQ + 1, 192, device=cuda), 1, 64, 0.1)
+    with pytest.raises(TypeError):
+        attention_blockdiag.blockdiag_attention(
+            torch.zeros(1, 4, 192, device=cuda, dtype=torch.float16), 1, 64, 0.1)
+    with pytest.raises(ValueError):
+        attention_blockdiag.blockdiag_attention(
+            torch.zeros(1, 192, 4, device=cuda).transpose(1, 2), 1, 64, 0.1)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,hd,dtype",
+    [
+        (2, 125, 8, 58, torch.float32),
+        (3, 125, 8, 58, torch.bfloat16),
+        (1, 500, 8, 58, torch.float32),
+        (2, 500, 8, 64, torch.bfloat16),
+        (5, 21, 4, 64, torch.float32),
+        (4, 21, 8, 58, torch.bfloat16),
+    ],
+)
+def test_smajor_kernel_matches_plain_version(cuda, B, S, H, hd, dtype):
+    """K6 against its plain version on sequence-major slabs plus a bias."""
+    rs = np.random.RandomState(8)
+    qkv = torch.as_tensor(rs.randn(S, B, 3 * H * hd).astype(np.float32)).to(cuda, dtype)
+    bias = torch.as_tensor(0.5 * rs.randn(3 * H * hd).astype(np.float32)).to(cuda, dtype)
+    launches = attention.LAUNCHES_SMAJOR
+    got = attention.fused_attention_qkv_smajor(qkv, bias, H)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_SMAJOR == launches + 1
+    want = attention.attention_qkv_smajor_reference(qkv, bias, H)
+    assert got.dtype == dtype and got.shape == (B, S, H * hd)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("path", ["attn_v2", "smajor"])
+def test_attention_path_denoiser_on_card_matches_cpu(cuda, path):
+    """The V2 (K5) and S-major (K6) paths on the card against the same
+    weights on the CPU (plain versions), float32."""
+    kw = dict(
+        backbone=BackboneConfig(d_model=116, nhead=2, dim_feedforward=64,
+                                num_layers=2, timestep_type="adalayernorm",
+                                diffusion_step=10),
+        num_classes=30, max_token_length=25, **{path: True},
+    )
+    cpu = make_transformer("cpu", torch.Generator().manual_seed(5), **kw)
+    gpu = make_transformer(cuda, torch.Generator().manual_seed(5), **kw)
+    rs = np.random.RandomState(0)
+    ids = torch.as_tensor(rs.randint(0, 30, (3, 25)))
+    t = torch.as_tensor(rs.randint(0, 10, (3,)))
+    counters = lambda: (attention.LAUNCHES, attention_blockdiag.LAUNCHES_BLOCKDIAG,
+                        attention.LAUNCHES_SMAJOR)
+    before = counters()
+    with torch.inference_mode():
+        want = cpu(ids, t)
+        got = gpu(ids.to(cuda), t.to(cuda)).cpu()
+    want_launches = (0, 2, 0) if path == "attn_v2" else (0, 0, 2)
+    assert tuple(a - b for a, b in zip(counters(), before)) == want_launches
     torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)

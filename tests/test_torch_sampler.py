@@ -205,8 +205,19 @@ def test_generator_regime_and_decode(pair):
 
 
 def test_guidance_not_ported_yet(pair):
+    """The guidance hook is ported (relation guidance): it is called once
+    per step with the step's model timestep, and an identity hook leaves
+    the chain unchanged."""
     _, _, tm = pair
-    with pytest.raises(NotImplementedError):
-        sample_chain(tm._predict_start, tm.q, torch.Generator(),
-                     SamplerCond.empty(1, tm.seq_len, "cpu"), TSampling(), pad_id=0,
-                     guidance_fn=lambda *a: a[0])
+    seen = []
+
+    def run(guidance_fn):
+        return sample_chain(tm._predict_start, tm.q, torch.Generator().manual_seed(0),
+                            SamplerCond.empty(2, tm.seq_len, "cpu"), TSampling(), pad_id=0,
+                            guidance_fn=guidance_fn)
+
+    with torch.no_grad():
+        got = run(lambda lp, t, cond: seen.append(t) or lp)
+        want = run(None)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert seen == list(range(tm.q.num_timesteps - 1, -1, -1))

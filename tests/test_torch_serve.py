@@ -1,6 +1,7 @@
 """The port's layout service held against the JAX service on the same
 weights (a JAX job bridged into the port's job format), its HTTP front on
-a loopback socket, seed determinism and request coalescing."""
+a loopback socket, relation requests, seed determinism and request
+coalescing."""
 
 import json
 import threading
@@ -36,6 +37,9 @@ LAYOUT = {
     "label": [1, 3, 0],
     "bbox": [[0.5, 0.2, 0.3, 0.1], [0.3, 0.6, 0.4, 0.2], [0.7, 0.8, 0.2, 0.15]],
 }
+RELATIONS = [{"src": "canvas", "dst": 0, "loc": "top"},
+             {"src": 0, "dst": 1, "size": "larger", "loc": "bottom"},
+             {"src": 1, "dst": 2, "size": "smaller"}]
 
 
 @pytest.fixture(scope="module")
@@ -115,6 +119,18 @@ def test_service_matches_jax_service(services, task):
             assert sorted(lay["label"]) == sorted(LAYOUT["label"])
 
 
+def test_relation_request_matches_jax_service(services):
+    """The graph lowered from a relation request, the guided lane and the
+    violation rate, against the JAX service on the same weights."""
+    js, ts = services
+    for layout in (LAYOUT, {"label": LAYOUT["label"]}):
+        want = js.generate("relation", 3, seed=4, layout=layout, relations=RELATIONS)
+        got = ts.generate("relation", 3, seed=4, layout=layout, relations=RELATIONS)
+        assert got["layouts"] == want["layouts"]
+        assert got["violation_rate"] == want["violation_rate"]
+    assert ts.info()["max_edges"] == js.info()["max_edges"] == 32
+
+
 @pytest.fixture(scope="module")
 def server(jobs):
     """The port's HTTP front over a random-sampling service with a ladder."""
@@ -157,7 +173,17 @@ def test_http_generate_and_errors(server):
                                 "layout": LAYOUT, "num_timesteps": 4})
         assert code == 200 and len(out["layouts"]) == 2
     code, out = _post(url, {"task": "relation", "layout": LAYOUT})
-    assert code == 400 and "not yet ported" in out["error"]
+    assert code == 400 and "requires a non-empty 'relations' list" in out["error"]
+    code, out = _post(url, {"task": "relation", "batch_size": 2, "seed": 1,
+                            "layout": {"label": LAYOUT["label"]}, "relations": RELATIONS})
+    assert code == 200 and len(out["layouts"]) == 2 and 0.0 <= out["violation_rate"] <= 1.0
+    for lay in out["layouts"]:
+        assert sorted(lay["label"]) == sorted(LAYOUT["label"])
+    for bad in ([{"src": 0, "dst": 3, "loc": "top"}], [{"src": 0, "dst": 0, "loc": "top"}],
+                [{"src": 0, "dst": 1}], [{"src": "canvas", "dst": 1, "size": "huge"}],
+                [{"src": 1, "dst": "canvas", "loc": "top"}], RELATIONS * 20):
+        code, out = _post(url, {"task": "relation", "layout": LAYOUT, "relations": bad})
+        assert code == 400, bad
     assert _post(url, {"task": "nope"})[0] == 400
     assert _post(url, {"task": "unconditional", "num_timesteps": 3})[0] == 400
     assert _post(url, {"task": "c"})[0] == 400  # conditional task without layout

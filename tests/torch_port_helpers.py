@@ -40,21 +40,21 @@ def tokenizers(num_bins=NUM_BINS, shared_vocab="x-y-w-h", var_order=("x", "y", "
     return jt, tt
 
 
-def port_layoutdm(tt, backbone=None, **kw):
+def port_layoutdm(tt, backbone=None, num_timesteps=NUM_TIMESTEPS, **kw):
     """The port's tiny LayoutDM on the CPU (its own configs)."""
     bb = dict(BACKBONE, **(backbone or {}))
     return LayoutDM(tconfigs.BackboneConfig(**bb), tt,
-                    tconfigs.ModelConfig(num_timesteps=NUM_TIMESTEPS), device="cpu", **kw)
+                    tconfigs.ModelConfig(num_timesteps=num_timesteps), device="cpu", **kw)
 
 
-def layoutdm_pair(seed=0, backbone=None, **port_kw):
+def layoutdm_pair(seed=0, backbone=None, num_timesteps=NUM_TIMESTEPS, **port_kw):
     """(jax model, jax params, port model) on identical weights;
-    ``port_kw`` reach the port's `LayoutDM` (the fused-path switches)."""
+    ``port_kw`` reach the port's `LayoutDM` (the denoiser-path switches)."""
     bb = dict(BACKBONE, **(backbone or {}))
     jt, tt = tokenizers()
-    jm = JaxLayoutDM(BackboneConfig(**bb), jt, ModelConfig(num_timesteps=NUM_TIMESTEPS))
+    jm = JaxLayoutDM(BackboneConfig(**bb), jt, ModelConfig(num_timesteps=num_timesteps))
     params = jax.jit(jm.init)(jax.random.PRNGKey(seed))
-    tm = port_layoutdm(tt, backbone, **port_kw)
+    tm = port_layoutdm(tt, backbone, num_timesteps, **port_kw)
     tm.net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     return jm, params, tm
 
