@@ -13,14 +13,16 @@ FFN 1856, 4 layers; random weights from a seed) and checks them:
 2. kernel       the CUDA attention kernel (K1) against its plain PyTorch
                 version at the serving shapes, errors and times;
 3. train_kernel the CUDA attention backward (K2) against its plain version
-                at the training shapes, errors and times;
+                at the training shapes and the tile edges (hd 32 .. 128,
+                S = 1 .. 500), errors and times;
 3a. ffn_kernel  the LayerNorm-FFN-residual kernel (K3) against its plain
                 version, float32 and bfloat16, three activations, errors
                 and times beside the unfused path;
 3b. block_kernel the attention-block kernel (K4) against its plain version
                 at S=125 and 500, errors and times beside the unfused path;
 3c. blockdiag_kernel the padded-head attention kernel (K5) against its
-                plain version, float32 and bfloat16, S = 21, 125 and 500,
+                plain version, float32 and bfloat16, S = 21, 125 and 500
+                and the tile edges (S = 1 .. 1024 at hp 64 and 128),
                 padded output lanes exactly 0, times beside SDPA;
 3d. smajor_kernel the sequence-major attention kernel (K6) against its
                 plain version at d_model 464 and 256, times beside the bias
@@ -52,7 +54,9 @@ FFN 1856, 4 layers; random weights from a seed) and checks them:
                 with the JAX CLI's keys, a violation rate for relation, K5
                 launched layers x chain steps.
 
-Each phase prints one JSON line and its seconds; then a ``{"kernels": [...]}`` line, the
+Each phase prints one JSON line and its seconds; then a ``{"kernels": [...]}``
+line (each kernel's time beside its bound, and the share of the bound it
+reaches, ``bound_share`` = bound_ms / ms), the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0) and
 no result line is printed.  Without CUDA it exits with code 2.
@@ -415,9 +419,9 @@ def padded_slab(g, B, S, H, hd, hp, dtype, device="cuda") -> torch.Tensor:
 
 
 def phase_blockdiag_kernel(device="cuda") -> dict:
-    """K5 against its plain version on padded-head slabs (hd 58 in hp 64);
-    the padded output lanes must be exactly 0.  Times beside SDPA's
-    forward on the hp-wide heads."""
+    """K5 against its plain version on padded-head slabs (hd 58 in hp 64;
+    at the tile edges also hd 100 in hp 128); the padded output lanes must
+    be exactly 0.  Times beside SDPA's forward on the hp-wide heads."""
     import torch.nn.functional as F
 
     from layoutdm_tpu_torch.ops.attention_blockdiag import (
@@ -427,18 +431,23 @@ def phase_blockdiag_kernel(device="cuda") -> dict:
 
     g = torch.Generator().manual_seed(14)
     H, hd, hp = FLAG_H, FLAG_HD, 64
-    scale = hd ** -0.5
-    cases = [("s125_f32", 64, 125, torch.float32, F32_TOL),
-             ("s125_bf16", 64, 125, torch.bfloat16, BF16_TOL),
-             ("s500_bf16", 8, 500, torch.bfloat16, BF16_TOL),
-             ("s500_f32", 8, 500, torch.float32, F32_TOL),
-             ("s21_bf16", 5, 21, torch.bfloat16, BF16_TOL)]
+    cases = [("s125_f32", 64, 125, hd, hp, torch.float32, F32_TOL),
+             ("s125_bf16", 64, 125, hd, hp, torch.bfloat16, BF16_TOL),
+             ("s500_bf16", 8, 500, hd, hp, torch.bfloat16, BF16_TOL),
+             ("s500_f32", 8, 500, hd, hp, torch.float32, F32_TOL),
+             ("s21_bf16", 5, 21, hd, hp, torch.bfloat16, BF16_TOL)]
+    # the tile edges: 16-key steps, the 128-key chunk (two sweeps past it),
+    # 128-query blocks, the sequence limit; hd 58 in hp 64, 100 in hp 128
+    cases += [(f"edge_s{S}_hp{p}_{dn}", 2, S, d, p, dt, tol)
+              for S in (1, 16, 64, 65, 128, 129, 1024) for d, p in ((58, 64), (100, 128))
+              for dn, dt, tol in (("f32", torch.float32, F32_TOL),
+                                  ("bf16", torch.bfloat16, BF16_TOL))]
     errs = {}
-    for name, B, S, dtype, tol in cases:
+    for name, B, S, hd, hp, dtype, tol in cases:
         qkv = padded_slab(g, B, S, H, hd, hp, dtype, device)
-        got = blockdiag_attention(qkv, H, hp, scale)
+        got = blockdiag_attention(qkv, H, hp, hd ** -0.5)
         torch.cuda.synchronize()
-        want = blockdiag_attention_reference(qkv, H, hp, scale)
+        want = blockdiag_attention_reference(qkv, H, hp, hd ** -0.5)
         err = (got.float() - want.float()).abs().max().item()
         pad = got.view(B, S, H, hp)[..., hd:]
         if not (got.shape == want.shape and np.isfinite(err) and err <= tol):
@@ -448,6 +457,8 @@ def phase_blockdiag_kernel(device="cuda") -> dict:
         errs[name] = err
 
     times = {}
+    hd, hp = FLAG_HD, 64
+    scale = hd ** -0.5
     for name, B, S in TIMED_SHAPES:
         qkv = padded_slab(g, B, S, H, hd, hp, torch.bfloat16, device)
         q, k, v = sdpa_views(qkv, H)
@@ -679,6 +690,12 @@ def phase_train_kernel(device="cuda") -> dict:
         ("s500_f32", 8, 500, 8, 58, torch.float32, 0.0, BWD_F32_TOL),
         ("hd64_scale58_f32", 16, 125, 8, 64, torch.float32, 58 ** -0.5, BWD_F32_TOL),
     ]
+    # the tile edges: 64-row tiles, 16-key steps, the 128-key chunk of pass
+    # A (two sweeps past it), every padded head width
+    cases += [(f"edge_hd{hd}_s{S}_{dn}", 2, S, 4, hd, dt, 0.0, tol)
+              for hd in (32, 58, 64, 96, 128) for S in (1, 64, 65, 128, 129, 500)
+              for dn, dt, tol in (("f32", torch.float32, BWD_F32_TOL),
+                                  ("bf16", torch.bfloat16, BWD_BF16_TOL))]
     errs, rel = {}, {}
     for name, B, S, H, hd, dtype, scale, tol in cases:
         qkv, do = inputs(B, S, H, hd, dtype)
@@ -1263,6 +1280,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
+            "bound_share": t["bound_ms"] / t["kernel_ms"],
             "library_ms": t["library_ms"],
         })
     emit({"kernels": rows})

@@ -18,213 +18,323 @@
 //
 // What bounds it on this card: at the flagship (B = 1024, S = 125, H = 8,
 // hp = 64, bf16) it reads the 393 MB slab and writes 131 MB, ~0.16 ms at
-// 3.35 TB/s, against 33 GFLOP, ~0.03 ms on the tensor cores: memory.
+// 3.35 TB/s, against 33 GFLOP, ~0.03 ms on the tensor cores: memory.  So
+// every byte of q, k and v should leave device memory once, and the products
+// must not be what limits the kernel.
 //
-// What this simple design does about it: one block per (batch row, 32-query
-// tile, head), 4 warps of 8 query rows.  hp = 64 puts heads at 128-byte
-// offsets, so q, k and v rows are staged into shared memory with 16-byte
-// vector loads.  The block keeps its whole (32, S) score tile in shared
-// memory (64 KB at S = 500), so the softmax is exact and p is normalised
-// before its rounding, as the TPU kernel rounds it; K and V are streamed in
-// 32-key chunks, each read once per block, so any S up to the tile's limit
-// fits (K+V of one head at S = 500 in f32 would be 256 KB, over a block's
-// 227 KB).  Lane j scores key j of a chunk; each lane accumulates the output
-// dims lane, lane+32, ... on the CUDA cores.  Left for later: tensor-core
-// products, and one K/V load per (row, head) for all query tiles.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What this design does about it (bfloat16):
+// - One block per (batch row, head, 128 query rows): at S <= 128 that is one
+//   block per (row, head), so K_h and V_h are read from device memory once.
+//   8 warps; each warp owns 16 query rows.  Q, K and V rows are staged with
+//   16-byte cp.async copies (hp = 64 puts heads at 128-byte offsets) into
+//   shared tiles of pitch hp + 8, which keeps ldmatrix free of bank
+//   conflicts: 3 x 18 KB at hp = 64.
+// - Both products run on the tensor cores as raw mma.sync m16n8k16 (bf16 in,
+//   float32 accumulate), operands from shared memory by ldmatrix.  The score
+//   accumulators of two neighbouring 8-key tiles are, register for register,
+//   the A operand of the next product, so p is normalised, rounded to bf16
+//   and fed to p.v without leaving registers.
+// - Softmax: K is taken in chunks of 128 keys.  At S <= 128, the flagship,
+//   a warp's whole (16, S) score row is one chunk in registers (16 tiles x 4
+//   floats a lane), and the softmax is exact in one sweep: quad shuffles for
+//   the max and the sum, then p.v.  For 128 < S <= 1024 the kernel sweeps K
+//   twice: first the row max and sum (each chunk's scores folded in as they
+//   come), then the scores again, each p normalised by the final statistics
+//   and rounded before its p.v.  A second sweep costs one more q.k^T on the
+//   tensor cores and one more read of K from L2; keeping the f32 scores in
+//   shared memory instead would take 128 rows x 1024 x 4 B = 512 KB.  An
+//   online rescale of an unnormalised p is not used: the TPU kernel rounds
+//   the normalised p.
+// - The output tile goes through the warp's own Q rows in shared memory and
+//   leaves in 16-byte stores.
+// float32 keeps exact float32 FMAs on the CUDA cores (no TF32, which keeps
+// ~3 decimal digits): one block per (row, 32-query tile, head), the whole
+// (32, S) score tile in shared memory, K and V streamed in 32-key chunks.
 
 #include <climits>
 #include <cmath>
 
+#include "mma_sync.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBlockK = 32;                      // keys per staged chunk
-constexpr int kMaxSeq = 1024;                    // the score tile's limit
+constexpr int kMaxSeq = 1024;
 
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+using mma::bf16;
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kWarps = 8;
+constexpr int kBlockQ = kWarps * 16;  // query rows per block
+constexpr int kChunk = 128;           // keys per K/V chunk
+
+template <int HP>
+constexpr size_t smem_bytes_bf16() {
+  return sizeof(bf16) * (size_t)(kBlockQ + 2 * kChunk) * (HP + 8);
 }
 
-template <typename T>
-__device__ __forceinline__ float round_to_io(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to_io<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+template <int HP>
+__global__ void __launch_bounds__(kWarps * 32, HP == 64 ? 2 : 1)
+    blockdiag_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int H,
+                          int n_qblocks, float c2) {
+  constexpr int P = HP + 8;  // shared row pitch
+  constexpr int NT = kChunk / 8;
+  constexpr int KD = HP / 16;
+  constexpr int DT = HP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBlockQ][P]
+  bf16* k_s = q_s + kBlockQ * P;                   // [kChunk][P]
+  bf16* v_s = k_s + kChunk * P;                    // [kChunk][P]
 
-// 16 bytes of the slab -> 16 / sizeof(T) floats
-__device__ __forceinline__ void load_vec(const float* p, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const int Hp = H * HP;
+  const long long ts = 3LL * Hp;  // token stride
+  const int b = blockIdx.x / n_qblocks;
+  const int q0 = (blockIdx.x % n_qblocks) * kBlockQ;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const bf16* head = qkv + (long long)b * S * ts + (long long)h * HP;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  const int wq = q0 + warp * 16;  // the warp's first query row
+  const bool live = wq < S;
+  bf16* qw = q_s + warp * 16 * P;
+
+  mma::load_rows(q_s, P, head + q0 * ts, ts, kBlockQ, S - q0, HP, HP, 16);
+
+  // sweep 1: row max m and sum l (per lane: rows g and g + 8 of the warp)
+  float s[NT][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int c = 0; c < n_chunks; ++c) {
+    const int k0 = c * kChunk;
+    if (c > 0) __syncthreads();  // every warp is done with the last chunk
+    mma::load_rows(k_s, P, head + Hp + k0 * ts, ts, kChunk, S - k0, HP, HP, 16);
+    if (n_chunks == 1) mma::load_rows(v_s, P, head + 2 * Hp, ts, kChunk, S, HP, HP, 16);
+    tile::cp_async_commit();
+    tile::cp_async_wait<0>();
+    __syncthreads();
+    if (!live) continue;
+    const int n16 = (min(kChunk, S - k0) + 15) >> 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [r0, r0 + n) of one head's hp-wide column block into dst (row pitch
-// `pitch` floats), zeros past the sequence end
-template <typename T, int HP>
-__device__ __forceinline__ void stage_rows(const T* col, long long token_stride,
-                                           int r0, int n, int S, float* dst,
-                                           int pitch) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecsPerRow = HP / kVec;
-  for (int i = threadIdx.x; i < n * kVecsPerRow; i += blockDim.x) {
-    const int r = i / kVecsPerRow, c = (i % kVecsPerRow) * kVec;
-    float v[kVec];
-    if (r0 + r < S) {
-      load_vec(col + (r0 + r) * token_stride + c, v);
-    } else {
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma::mma_abt<KD, NT / 2>(s, qw, k_s, P, n16);
+    mma::scale_mask(s, k0, S, c2, n16);
+    float mc[2] = {m[0], m[1]};
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) v[e] = 0.f;
+    for (int j = 0; j < NT; ++j)
+      if (j < 2 * n16)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mc[e >> 1] = fmaxf(mc[e >> 1], s[j][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mc[r] = mma::quad_max(mc[r]);
+      l[r] *= exp2f(m[r] - mc[r]);  // 0 on the first chunk
+      m[r] = mc[r];
     }
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[r * pitch + c + e] = v[e];
+    for (int j = 0; j < NT; ++j)
+      if (j < 2 * n16)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[j][e] - m[e >> 1]);
+  }
+  const float inv_l[2] = {1.f / mma::quad_sum(l[0]), 1.f / mma::quad_sum(l[1])};
+
+  // sweep 2 (the scores of a single chunk are still in registers): p
+  // normalised, rounded to bf16, p.v
+  float o[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int k0 = c * kChunk;
+    const int n16 = (min(kChunk, S - k0) + 15) >> 4;
+    if (n_chunks > 1) {
+      __syncthreads();
+      mma::load_rows(k_s, P, head + Hp + k0 * ts, ts, kChunk, S - k0, HP, HP, 16);
+      mma::load_rows(v_s, P, head + 2 * Hp + k0 * ts, ts, kChunk, S - k0, HP, HP, 16);
+      tile::cp_async_commit();
+      tile::cp_async_wait<0>();
+      __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        mma::mma_abt<KD, NT / 2>(s, qw, k_s, P, n16);
+        mma::scale_mask(s, k0, S, c2, n16);
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      if (kk < n16) {
+        float p0[4], p1[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p0[e] = exp2f(s[2 * kk][e] - m[e >> 1]) * inv_l[e >> 1];
+          p1[e] = exp2f(s[2 * kk + 1][e] - m[e >> 1]) * inv_l[e >> 1];
+        }
+        uint32_t a[4];
+        mma::pack_a(a, p0, p1);
+        mma::mma_ab<DT>(o, a, v_s + kk * 16 * P, P);
+      }
+    }
+  }
+  if (!live) return;
+
+  // the output through the warp's own Q rows, out in 16-byte stores
+  __syncwarp();
+  mma::store_acc<DT>(qw, P, o);
+  __syncwarp();
+  mma::store_rows(out + ((long long)b * S + wq) * Hp + (long long)h * HP, Hp, qw, P,
+                  min(16, S - wq), HP, 16);
+}
+
+template <int HP>
+cudaError_t launch_bf16(const void* qkv, void* out, int B, int S, int H, float scale,
+                        cudaStream_t stream) {
+  const int n_qblocks = (S + kBlockQ - 1) / kBlockQ;
+  const size_t smem = smem_bytes_bf16<HP>();
+  auto kernel = blockdiag_bf16_kernel<HP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((long long)B * n_qblocks), (unsigned)H);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(static_cast<const bf16*>(qkv),
+                                              static_cast<bf16*>(out), S, H, n_qblocks,
+                                              scale * mma::kLog2e);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: exact FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+constexpr int kF32Warps = 4;
+constexpr int kF32RowsPerWarp = 8;
+constexpr int kF32BlockQ = kF32Warps * kF32RowsPerWarp;  // query rows per block
+constexpr int kF32BlockK = 32;                           // keys per staged chunk
+
+// rows [r0, r0 + n) of one head's hp-wide column block into dst (row pitch
+// `pitch` floats), zeros past the sequence end; 16-byte loads
+template <int HP>
+__device__ __forceinline__ void stage_rows(const float* col, long long token_stride, int r0, int n,
+                                           int S, float* dst, int pitch) {
+  constexpr int kVecsPerRow = HP / 4;
+  for (int i = threadIdx.x; i < n * kVecsPerRow; i += blockDim.x) {
+    const int r = i / kVecsPerRow, c = (i % kVecsPerRow) * 4;
+    const float4 v = r0 + r < S
+                         ? *reinterpret_cast<const float4*>(col + (r0 + r) * token_stride + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    dst[r * pitch + c] = v.x;
+    dst[r * pitch + c + 1] = v.y;
+    dst[r * pitch + c + 2] = v.z;
+    dst[r * pitch + c + 3] = v.w;
   }
 }
 
-template <typename T, int HP>
-__global__ void __launch_bounds__(kWarps * 32)
-    blockdiag_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S,
-                     int H, int n_qtiles, int s_pitch, float scale) {
+template <int HP>
+__global__ void __launch_bounds__(kF32Warps * 32)
+    blockdiag_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S, int H,
+                         int n_qtiles, int s_pitch, float scale) {
   constexpr int kDimsPerLane = HP / 32;
+  constexpr int R = kF32RowsPerWarp;
   extern __shared__ float smem[];
-  float* q_s = smem;                          // [kBlockQ][HP]
-  float* kv_s = q_s + kBlockQ * HP;           // [kBlockK][HP + 1], K then V
-  float* s_s = kv_s + kBlockK * (HP + 1);     // [kBlockQ][s_pitch] scores, then p
+  float* q_s = smem;                            // [kF32BlockQ][HP]
+  float* kv_s = q_s + kF32BlockQ * HP;          // [kF32BlockK][HP + 1], K then V
+  float* s_s = kv_s + kF32BlockK * (HP + 1);    // [kF32BlockQ][s_pitch] scores, then p
 
   const int Hp = H * HP;
   const long long token_stride = 3LL * Hp;
   const int b = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockQ;
+  const int q0 = (blockIdx.x % n_qtiles) * kF32BlockQ;
   const int h = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const T* row0 = qkv + (long long)b * S * token_stride + (long long)h * HP;
+  const float* row0 = qkv + (long long)b * S * token_stride + (long long)h * HP;
 
-  stage_rows<T, HP>(row0, token_stride, q0, kBlockQ, S, q_s, HP);
+  stage_rows<HP>(row0, token_stride, q0, kF32BlockQ, S, q_s, HP);
 
   // scores of this warp's rows against every key, scaled; -inf past S
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
+  for (int k0 = 0; k0 < S; k0 += kF32BlockK) {
     __syncthreads();  // q_s written; the last chunk consumed
-    stage_rows<T, HP>(row0 + Hp, token_stride, k0, kBlockK, S, kv_s, HP + 1);
+    stage_rows<HP>(row0 + Hp, token_stride, k0, kF32BlockK, S, kv_s, HP + 1);
     __syncthreads();
-    float s[kRowsPerWarp];
+    float s[R];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
+    for (int r = 0; r < R; ++r) s[r] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < HP; ++d) {
       const float kd = kv_s[lane * (HP + 1) + d];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        s[r] = fmaf(q_s[(warp * kRowsPerWarp + r) * HP + d], kd, s[r]);
+      for (int r = 0; r < R; ++r) s[r] = fmaf(q_s[(warp * R + r) * HP + d], kd, s[r]);
     }
     const bool key_ok = k0 + lane < S;
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      s_s[(warp * kRowsPerWarp + r) * s_pitch + k0 + lane] =
-          key_ok ? s[r] * scale : -INFINITY;
+    for (int r = 0; r < R; ++r)
+      s_s[(warp * R + r) * s_pitch + k0 + lane] = key_ok ? s[r] * scale : -INFINITY;
   }
   __syncwarp();
 
-  // exact softmax per row, the normalised p rounded to the io dtype
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    float* sr = s_s + (warp * kRowsPerWarp + r) * s_pitch;
+  // exact softmax per row
+  for (int r = 0; r < R; ++r) {
+    float* sr = s_s + (warp * R + r) * s_pitch;
     float m = -INFINITY;
     for (int j = lane; j < S; j += 32) m = fmaxf(m, sr[j]);
-    m = warp_max(m);
+    m = tile::warp_max(m);
     float l = 0.f;
     for (int j = lane; j < S; j += 32) {
       const float e = expf(sr[j] - m);
       sr[j] = e;
       l += e;
     }
-    l = warp_sum(l);
-    for (int j = lane; j < S; j += 32) sr[j] = round_to_io<T>(sr[j] / l);
+    l = tile::warp_sum(l);
+    for (int j = lane; j < S; j += 32) sr[j] /= l;
   }
   __syncwarp();
 
-  float acc[kRowsPerWarp][kDimsPerLane];
+  float acc[R][kDimsPerLane];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
+  for (int k0 = 0; k0 < S; k0 += kF32BlockK) {
     __syncthreads();  // every warp is done with kv_s (the K chunk or last V chunk)
-    stage_rows<T, HP>(row0 + 2 * Hp, token_stride, k0, kBlockK, S, kv_s, HP + 1);
+    stage_rows<HP>(row0 + 2 * Hp, token_stride, k0, kF32BlockK, S, kv_s, HP + 1);
     __syncthreads();
-    const int n_keys = min(kBlockK, S - k0);
+    const int n_keys = min(kF32BlockK, S - k0);
     for (int j = 0; j < n_keys; ++j) {
 #pragma unroll
       for (int i = 0; i < kDimsPerLane; ++i) {
         const float vv = kv_s[j * (HP + 1) + lane + 32 * i];
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r)
-          acc[r][i] = fmaf(s_s[(warp * kRowsPerWarp + r) * s_pitch + k0 + j], vv,
-                           acc[r][i]);
+        for (int r = 0; r < R; ++r)
+          acc[r][i] = fmaf(s_s[(warp * R + r) * s_pitch + k0 + j], vv, acc[r][i]);
       }
     }
   }
 
-  T* obase = out + (long long)b * S * Hp + (long long)h * HP;
+  float* obase = out + (long long)b * S * Hp + (long long)h * HP;
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + warp * kRowsPerWarp + r;
+  for (int r = 0; r < R; ++r) {
+    const int qi = q0 + warp * R + r;
     if (qi >= S) continue;
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i)
-      store_f32(obase + (long long)qi * Hp + lane + 32 * i, acc[r][i]);
+    for (int i = 0; i < kDimsPerLane; ++i) obase[(long long)qi * Hp + lane + 32 * i] = acc[r][i];
   }
 }
 
-template <typename T, int HP>
-cudaError_t launch_typed(const void* qkv, void* out, int B, int S, int H,
-                         float scale, cudaStream_t stream) {
-  const int n_qtiles = (S + kBlockQ - 1) / kBlockQ;
-  const int s_pitch = (S + kBlockK - 1) / kBlockK * kBlockK;
-  const size_t smem = sizeof(float) *
-      ((size_t)kBlockQ * HP + (size_t)kBlockK * (HP + 1) + (size_t)kBlockQ * s_pitch);
-  auto kernel = blockdiag_kernel<T, HP>;
+template <int HP>
+cudaError_t launch_f32(const void* qkv, void* out, int B, int S, int H, float scale,
+                       cudaStream_t stream) {
+  const int n_qtiles = (S + kF32BlockQ - 1) / kF32BlockQ;
+  const int s_pitch = (S + kF32BlockK - 1) / kF32BlockK * kF32BlockK;
+  const size_t smem = sizeof(float) * ((size_t)kF32BlockQ * HP + (size_t)kF32BlockK * (HP + 1) +
+                                       (size_t)kF32BlockQ * s_pitch);
+  auto kernel = blockdiag_f32_kernel<HP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((long long)B * n_qtiles), (unsigned)H);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(static_cast<const T*>(qkv),
-                                              static_cast<T*>(out), S, H, n_qtiles,
-                                              s_pitch, scale);
+  kernel<<<grid, kF32Warps * 32, smem, stream>>>(static_cast<const float*>(qkv),
+                                                 static_cast<float*>(out), S, H, n_qtiles,
+                                                 s_pitch, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_hp(const void* qkv, void* out, int B, int S, int H, int hp,
-                      float scale, cudaStream_t stream) {
-  if (hp == 64) return launch_typed<T, 64>(qkv, out, B, S, H, scale, stream);
-  if (hp == 128) return launch_typed<T, 128>(qkv, out, B, S, H, scale, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -232,16 +342,18 @@ cudaError_t launch_hp(const void* qkv, void* out, int B, int S, int H, int hp,
 // qkv_pad: contiguous (B, S, 3*H*hp), 16-byte aligned; out: contiguous
 // (B, S, H*hp), same dtype; hp = 64 or 128; S <= 1024.
 // dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
-extern "C" int attention_blockdiag_launch(const void* qkv_pad, void* out, int B,
-                                          int S, int H, int hp, float scale,
-                                          int dtype, void* stream) {
-  if (B < 1 || S < 1 || S > kMaxSeq || H < 1 || H > 65535)
+extern "C" int attention_blockdiag_launch(const void* qkv_pad, void* out, int B, int S, int H,
+                                          int hp, float scale, int dtype, void* stream) {
+  if (B < 1 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 || (hp != 64 && hp != 128))
     return (int)cudaErrorInvalidValue;
-  const long long n_qtiles = (S + kBlockQ - 1) / kBlockQ;
+  const long long n_qtiles = (S + kF32BlockQ - 1) / kF32BlockQ;  // the finer of the two tilings
   if ((long long)B * n_qtiles > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_hp<float>(qkv_pad, out, B, S, H, hp, scale, st);
+  if (dtype == 0)
+    return (int)(hp == 64 ? launch_f32<64>(qkv_pad, out, B, S, H, scale, st)
+                          : launch_f32<128>(qkv_pad, out, B, S, H, scale, st));
   if (dtype == 1)
-    return (int)launch_hp<__nv_bfloat16>(qkv_pad, out, B, S, H, hp, scale, st);
+    return (int)(hp == 64 ? launch_bf16<64>(qkv_pad, out, B, S, H, scale, st)
+                          : launch_bf16<128>(qkv_pad, out, B, S, H, scale, st));
   return (int)cudaErrorInvalidValue;
 }

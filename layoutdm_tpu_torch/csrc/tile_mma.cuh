@@ -1,6 +1,8 @@
 // Block-level building blocks shared by the fused kernels (ffn.cu = K3,
 // attention_block.cu = K4): io-dtype conversions, warp reductions, a 16x16
-// warp tile product, and a global -> shared tile copy with zero fill.
+// warp tile product, and a global -> shared tile copy with zero fill.  The
+// cp.async primitives and warp reductions also serve K5 and K2, through
+// mma_sync.cuh.
 //
 // The tile product C += A B (depth 16, float32 accumulator) has one
 // interface and two bodies:

@@ -192,7 +192,8 @@ def fused_attention_qkv_bwd(
     scale = scale or 1.0 / math.sqrt(hd)
     fn = bwd_kernel_library().lib.attention_qkv_bwd_launch
     dqkv = torch.empty_like(qkv)
-    # per (row, head, query): the softmax's log-normaliser and rowsum(dp·p)
+    # per (row, head, query): the softmax's log-normaliser (base 2 in
+    # bfloat16, e in float32) and rowsum(dp·p)
     stats = torch.empty((B, num_heads, S, 2), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream

@@ -33,7 +33,7 @@ from layoutdm_tpu_torch.ops.cuda_build import BuiltLibrary, load_library
 LAUNCHES_BLOCKDIAG = 0
 
 HEAD_PADS = (64, 128)  # the padded head widths the kernel takes
-MAX_SEQ = 1024  # a block keeps a (32, S) float32 score tile in shared memory
+MAX_SEQ = 1024  # in float32 a block keeps a (32, S) score tile in shared memory
 
 
 def padded_head_dim(head_dim: int) -> int:

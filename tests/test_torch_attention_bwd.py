@@ -60,7 +60,12 @@ def _rel_err(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
 
 
-@pytest.mark.parametrize("B,S,H,hd", [(2, 25, 2, 58), (2, 13, 4, 16), (1, 40, 1, 8)])
+@pytest.mark.parametrize("B,S,H,hd", [
+    (2, 25, 2, 58), (2, 13, 4, 16), (1, 40, 1, 8),
+    # the CUDA kernel's tile edges: one key, one 16-key step, one past a
+    # 64-row tile, one past the 128-key chunk (pass A's second sweep)
+    (2, 1, 2, 58), (1, 16, 2, 58), (1, 65, 2, 58), (1, 129, 2, 58),
+])
 def test_reference_matches_pallas_interpret_f32(B, S, H, hd):
     qkv, do = _inputs(B, S, H, hd)
     got = attention_qkv_bwd_reference(torch.as_tensor(qkv), torch.as_tensor(do), H)
@@ -68,8 +73,7 @@ def test_reference_matches_pallas_interpret_f32(B, S, H, hd):
     assert _rel_err(got.numpy(), _jax_bwd(qkv, do, H)) <= F32_TOL
 
 
-def test_reference_matches_pallas_interpret_bf16():
-    B, S, H, hd = 2, 25, 2, 58
+def _check_bf16(B, S, H, hd):
     qkv, do = _inputs(B, S, H, hd, seed=1)
     got = attention_qkv_bwd_reference(
         torch.as_tensor(qkv).bfloat16(), torch.as_tensor(do).bfloat16(), H
@@ -77,6 +81,17 @@ def test_reference_matches_pallas_interpret_bf16():
     assert got.dtype == torch.bfloat16
     want = _jax_bwd(qkv, do, H, dtype=jnp.bfloat16)
     assert _rel_err(got.float().numpy(), want) <= BF16_TOL
+
+
+def test_reference_matches_pallas_interpret_bf16():
+    _check_bf16(2, 25, 2, 58)
+
+
+@pytest.mark.parametrize("S", [1, 16, 65, 129])
+def test_reference_matches_pallas_interpret_bf16_at_kernel_tile_edges(S):
+    """bf16 at the CUDA kernel's tile edges (one key, one 16-key step, past
+    a 64-row tile, past the 128-key chunk)."""
+    _check_bf16(1, S, 2, 58)
 
 
 def test_reference_scale_override_on_padded_head_slab():

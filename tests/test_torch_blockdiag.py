@@ -42,7 +42,14 @@ def _padded(rs, B, S, H, hd, hp, dtype=np.float32):
     return x.reshape(B, S, 3 * H * hp).astype(dtype)
 
 
-@pytest.mark.parametrize("B,S,H,hd,hp", [(2, 9, 2, 6, 64), (3, 25, 4, 58, 64), (2, 21, 2, 58, 128)])
+@pytest.mark.parametrize("B,S,H,hd,hp", [
+    (2, 9, 2, 6, 64), (3, 25, 4, 58, 64), (2, 21, 2, 58, 128),
+    # the CUDA kernel's tile edges: one key, one 16-key step, a 16-key step
+    # past a 64-key boundary, one past its 128-key chunk (the second sweep);
+    # hd 58 inside hp 128
+    (2, 1, 2, 58, 64), (1, 16, 2, 58, 64), (1, 65, 2, 58, 64), (1, 129, 2, 58, 64),
+    (1, 65, 2, 58, 128), (1, 129, 1, 58, 128),
+])
 def test_plain_version_matches_jax_kernel(B, S, H, hd, hp):
     qkv = _padded(np.random.RandomState(0), B, S, H, hd, hp)
     scale = 1.0 / math.sqrt(hd)
@@ -57,8 +64,7 @@ def test_plain_version_matches_jax_kernel(B, S, H, hd, hp):
         bd.blockdiag_attention(torch.as_tensor(qkv), H, hp, scale).numpy(), got)
 
 
-def test_plain_version_bf16_matches_jax_kernel():
-    B, S, H, hd, hp = 2, 25, 2, 58, 64
+def _check_bf16(B, S, H, hd, hp):
     qkv = _padded(np.random.RandomState(1), B, S, H, hd, hp)
     x = torch.as_tensor(qkv).to(torch.bfloat16)
     scale = 1.0 / math.sqrt(hd)
@@ -70,6 +76,17 @@ def test_plain_version_bf16_matches_jax_kernel():
     got = got.float().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=BF16_REL * np.abs(want).max())
     assert not got.reshape(B, S, H, hp)[..., hd:].any()
+
+
+def test_plain_version_bf16_matches_jax_kernel():
+    _check_bf16(2, 25, 2, 58, 64)
+
+
+@pytest.mark.parametrize("S,hp", [(1, 64), (16, 64), (65, 128), (129, 64)])
+def test_plain_version_bf16_at_kernel_tile_edges(S, hp):
+    """bf16 at the CUDA kernel's tile edges (one key, one 16-key step, past
+    a 64-key boundary, past the 128-key chunk), hd 58 in hp 64 and 128."""
+    _check_bf16(1, S, 2, 58, hp)
 
 
 def test_weight_scatter_is_the_jax_scatter_transposed():

@@ -41,6 +41,31 @@ FUSED_BF16_REL_TOL = 2 ** -7
 
 pytestmark = pytest.mark.cuda
 
+# the tile edges of the tensor-core bodies: K2's 64-row tiles, 16-key steps
+# and 128-key chunks (one pass over K/V at S <= 128, two sweeps past it),
+# every head width it pads (to 32, 64, 96, 128); K5's 16-key steps, 128-key
+# chunks and 128-query blocks up to its sequence limit, at both head pads
+BWD_EDGES = [
+    (2, S, 4, hd, dtype, 0.0)
+    for hd in (32, 58, 64, 96, 128)
+    for S in (1, 64, 65, 128, 129, 500)
+    for dtype in (torch.float32, torch.bfloat16)
+] + [
+    # K2's bf16 copy modes: 16-byte windows with heads at every lead (hd 58
+    # and 30 over 4 heads), 4-byte copies (d_model 174 is no multiple of 8;
+    # hd 124 needs a window wider than 128), 2-byte copies (odd hd)
+    (2, 65, 4, 30, torch.bfloat16, 0.0),
+    (2, 65, 3, 58, torch.bfloat16, 0.0),
+    (2, 40, 2, 124, torch.bfloat16, 0.0),
+    (2, 40, 2, 5, torch.bfloat16, 0.0),
+]
+BLOCKDIAG_EDGES = [
+    (2, S, 2, hd, hp, dtype)
+    for S in (1, 16, 64, 65, 128, 129, 1024)
+    for hd, hp in ((58, 64), (100, 128))
+    for dtype in (torch.float32, torch.bfloat16)
+]
+
 
 @pytest.fixture
 def cuda():
@@ -97,7 +122,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         (3, 1, 2, 128, torch.float32, 0.0),
         (2, 33, 3, 64, torch.bfloat16, 58 ** -0.5),
         (1, 70, 1, 5, torch.float32, 0.0),
-    ],
+    ] + BWD_EDGES,
 )
 def test_bwd_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, scale):
     qkv = torch.as_tensor(_slab(B, S, H, hd)).to(cuda, dtype)
@@ -390,7 +415,7 @@ def _padded_slab(rs, B, S, H, hd, hp):
         (2, 500, 8, 58, 64, torch.bfloat16),
         (3, 21, 8, 64, 64, torch.float32),
         (2, 21, 4, 100, 128, torch.bfloat16),
-    ],
+    ] + BLOCKDIAG_EDGES,
 )
 def test_blockdiag_kernel_matches_plain_version(cuda, B, S, H, hd, hp, dtype):
     """K5 against its plain version; the padded output lanes exactly 0."""
