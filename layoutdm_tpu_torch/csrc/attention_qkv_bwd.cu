@@ -41,9 +41,9 @@
 //   slice's products, and d(qkv) tiles in window columns go back in 16-byte
 //   stores inside the slice and 4-byte stores at its two ends.  Rows have a
 //   pitch of HDP + 8, so ldmatrix is free of bank conflicts.  Where the
-//   layout allows no window (d_model not a multiple of 8, hd > 122) rows go
-//   in 4-byte copies at column 0, hd zero-padded to a multiple of 32;
-//   2-byte copies for an odd hd.
+//   layout allows no window (d_model not a multiple of 8, an odd hd, hd >
+//   122) rows are copied element by element to column 0, hd zero-padded to
+//   a multiple of 32.
 // - The grid walks the heads of one row tile side by side, so the 32-byte
 //   sectors that two neighbouring heads' slices share are read and written
 //   while they are in L2.
@@ -97,10 +97,9 @@ constexpr size_t smem_bytes_b() {
 // zero columns hd .. HDP of `rows` shared rows (the loads never write them)
 template <int HDP>
 __device__ __forceinline__ void zero_pad_cols(bf16* s, int rows, int hd) {
-  const mma::RowLanes rl(HDP - hd);
-  const int step = (blockDim.x >> 5) * rl.rows_per_warp();
-  for (int r = (threadIdx.x >> 5) * rl.rows_per_warp() + rl.row; r < rows; r += step)
-    for (int c = hd + rl.col; c < HDP; c += rl.lanes()) s[r * (HDP + 8) + c] = __float2bfloat16(0.f);
+  const int n = HDP - hd;
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x)
+    s[i / n * (HDP + 8) + hd + i % n] = __float2bfloat16(0.f);
 }
 
 // pass A: softmax statistics, delta and dq for 64 query rows
@@ -722,7 +721,7 @@ cudaError_t launch_typed(const void* qkv, const void* dout, void* dqkv, void* st
     // hd % 8 == 0 puts every head at the window's start
     int width = (hd + (mode == 16 && hd % 8 ? 6 : 0) + 31) / 32 * 32;
     if (width > 128) {
-      mode = 4;
+      mode = 2;
       width = 128;
     }
     BWD_DISPATCH(launch_bf16, width, in, g, o, st, B, S, H, hd, scale, mode, stream)

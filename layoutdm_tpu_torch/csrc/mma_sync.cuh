@@ -142,13 +142,6 @@ __device__ __forceinline__ void store_acc(bf16* dst, int pitch, const float (&ac
   }
 }
 
-// 4-byte asynchronous copy global -> shared; valid = false writes zeros
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0));
-}
-
 // 16-byte asynchronous copy global -> shared of the first n bytes of gmem
 // (0 <= n <= 16), zeros after them
 __device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem, int n) {
@@ -167,16 +160,11 @@ __device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem, int n
 //     row's width are the slice's, and an output tile in window columns
 //     goes back to the head with 16-byte stores inside it and 4-byte stores
 //     at its two ends.
-// 4:  4-byte copies (cols even, pointers 4-byte aligned), slice at column 0;
-// 2:  2-byte copies, slice at column 0.
+// 2:  element copies, slice at column 0: every layout that allows no window.
 __host__ __forceinline__ int copy_mode(int cols, long long ld, const void* const* ptrs, int n) {
-  bool a16 = cols % 2 == 0 && ld % 8 == 0, a4 = cols % 2 == 0 && ld % 2 == 0;
-  for (int i = 0; i < n; ++i) {
-    const uintptr_t p = reinterpret_cast<uintptr_t>(ptrs[i]);
-    a16 = a16 && p % 16 == 0;
-    a4 = a4 && p % 4 == 0;
-  }
-  return a16 ? 16 : a4 ? 4 : 2;
+  bool a16 = cols % 2 == 0 && ld % 8 == 0;
+  for (int i = 0; i < n; ++i) a16 = a16 && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+  return a16 ? 16 : 2;
 }
 
 // where a slice starting at p sits in its 16-byte window (mode 16)
@@ -184,9 +172,11 @@ __device__ __forceinline__ int window_lead(const bf16* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) >> 1);
 }
 
-// A row of `n` copies is walked by a group of L lanes (L = 8, 16 or 32, the
-// least power of two >= n up to 32), 32 / L rows per warp at a time, so
-// the lanes' rows and columns come from shifts, not divisions by n.
+// A row of `n` 16-byte copies is walked by a group of L lanes (L = 8, 16
+// or 32, the least power of two >= n up to 32), 32 / L rows per warp at a
+// time, so the lanes' rows and columns come from shifts, not divisions by
+// n: with a flat i / n, i % n loop K5 and K2 ran 8-12% slower at the
+// flagship on an H100 (compare_kernels.py).
 struct RowLanes {
   int shift, row, col;  // log2 L; this lane's row in its warp's group, first column
   __device__ __forceinline__ explicit RowLanes(int n) {
@@ -203,14 +193,14 @@ struct RowLanes {
 // rows dst + r * pitch as `mode` places them, zero rows for
 // rows_ok <= r < rows.  In mode 16 all `width` columns of a row are
 // written, the first `lead` with the previous head's last values until
-// `clear_leads` zeroes them; in modes 4 and 2 only columns < cols.  Whole
-// block.  16- and 4-byte copies are cp.async: the caller commits, waits,
-// runs clear_leads and synchronises.
+// `clear_leads` zeroes them; in mode 2 only columns < cols.  Whole block.
+// Mode 16 copies are cp.async: the caller commits, waits, runs clear_leads
+// and synchronises.
 __device__ __forceinline__ void load_rows(bf16* dst, int pitch, const bf16* __restrict__ src,
                                           long long ld, int rows, int rows_ok, int cols,
                                           int width, int mode) {
-  const int step_w = blockDim.x >> 5, warp = threadIdx.x >> 5;
   if (mode == 16) {
+    const int step_w = blockDim.x >> 5, warp = threadIdx.x >> 5;
     const int lead = window_lead(src);
     const char* base = reinterpret_cast<const char*>(src - lead);
     const int end = 2 * (lead + cols);  // the slice's bytes in its window: [2 lead, end)
@@ -226,18 +216,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, int pitch, const bf16* __re
     }
     return;
   }
-  const int per = mode / 2;  // elements per copy
-  const RowLanes rl(cols / per);
-  for (int r = warp * rl.rows_per_warp() + rl.row; r < rows; r += step_w * rl.rows_per_warp()) {
-    const bool ok = r < rows_ok;
-    const bf16* s = ok ? src + r * ld : src;
-    bf16* d = dst + r * pitch;
-    for (int c = rl.col * per; c < cols; c += rl.lanes() * per) {
-      if (per == 2)
-        cp_async4(d + c, s + c, ok);
-      else
-        d[c] = ok ? s[c] : __float2bfloat16(0.f);
-    }
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols, c = i % cols;
+    dst[r * pitch + c] = r < rows_ok ? src[r * ld + c] : __float2bfloat16(0.f);
   }
 }
 
@@ -247,9 +228,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, int pitch, const bf16* __re
 // previous head.
 __device__ __forceinline__ void clear_leads(bf16* dst, int pitch, const bf16* src, int rows,
                                             int width, int mode) {
+  if (mode != 16) return;
   const int lead = window_lead(src);
   const RowLanes rl(width / 8);
-  if (mode != 16 || lead == 0 || rl.col != 0) return;
+  if (lead == 0 || rl.col != 0) return;
   const int step = (blockDim.x >> 5) * rl.rows_per_warp();
   for (int r = (threadIdx.x >> 5) * rl.rows_per_warp() + rl.row; r < rows; r += step)
     for (int k = 0; k < lead / 2; ++k) reinterpret_cast<uint32_t*>(dst + r * pitch)[k] = 0u;
@@ -280,16 +262,9 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, long long ld,
     }
     return;
   }
-  const int per = mode / 2;
-  const RowLanes rl(cols / per);
-  for (int r = rl.row; r < rows_ok; r += rl.rows_per_warp()) {
-    for (int c = rl.col * per; c < cols; c += rl.lanes() * per) {
-      if (per == 2)
-        *reinterpret_cast<uint32_t*>(dst + r * ld + c) =
-            *reinterpret_cast<const uint32_t*>(src + r * pitch + c);
-      else
-        dst[r * ld + c] = src[r * pitch + c];
-    }
+  for (int i = threadIdx.x & 31; i < rows_ok * cols; i += 32) {
+    const int r = i / cols, c = i % cols;
+    dst[r * ld + c] = src[r * pitch + c];
   }
 }
 

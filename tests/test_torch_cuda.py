@@ -52,8 +52,8 @@ BWD_EDGES = [
     for dtype in (torch.float32, torch.bfloat16)
 ] + [
     # K2's bf16 copy modes: 16-byte windows with heads at every lead (hd 58
-    # and 30 over 4 heads), 4-byte copies (d_model 174 is no multiple of 8;
-    # hd 124 needs a window wider than 128), 2-byte copies (odd hd)
+    # and 30 over 4 heads), element copies where no window fits (d_model 174
+    # is no multiple of 8; hd 124 needs a window wider than 128; odd hd)
     (2, 65, 4, 30, torch.bfloat16, 0.0),
     (2, 65, 3, 58, torch.bfloat16, 0.0),
     (2, 40, 2, 124, torch.bfloat16, 0.0),

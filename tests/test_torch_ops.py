@@ -151,7 +151,8 @@ def test_sample_mask_matches_jax_with_injected_scores():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("what", ["package", "chip_smoke", "profile_chain"])
+@pytest.mark.parametrize("what", ["package", "chip_smoke", "profile_chain",
+                                  "compare_kernels"])
 def test_port_imports_no_jax(what):
     """Every module of the port, and each of the port's scripts (imported,
     not run), imports in a fresh interpreter without loading jax, flax or
