@@ -1,6 +1,8 @@
-"""Time the padded-head attention (K5) and the attention backward (K2) of
-this checkout against the same kernels built from another checkout, on one
-NVIDIA GPU.
+"""Time the attention kernels K1, K6 (packed-qkv forward, batch- and
+sequence-major), K5 (padded heads) and K2 (backward) of this checkout
+against the same kernels built from another checkout, on one NVIDIA GPU,
+and hold both versions of K1, K6 and K4 (attention block) to their plain
+versions on sharp scores and at the 128-key edge.
 
     python3 compare_kernels.py --base DIR
 
@@ -8,11 +10,21 @@ DIR is the root of another checkout of the repo, for example the parent
 commit unpacked with ``git archive``.  Each kernel is built twice, from this
 checkout's sources and from DIR's, with the port's nvcc flags, and called
 through its C entry point on the same bfloat16 inputs at the flagship widths
-(8 heads of 58; K5 on heads padded to 64).  Both versions are first held to
-the plain version on a slice of the batch, within ``chip_smoke``'s
-tolerances; then they are timed by CUDA events (median of 25) in the order
-base, new, new, base.  Prints the card's name and power limit, then one JSON
-line per kernel and shape.
+(8 heads of 58; K5 on heads padded to 64).
+
+1. Accuracy: both versions of K1, K6 and K4 against the plain version on
+   the cases `chip_smoke` adds for rounding the normalised softmax (q and k
+   scaled by ``chip_smoke.SHARP``; S = 127, 128, 129), one JSON line per
+   case with each version's max abs error and whether it is within
+   ``chip_smoke``'s tolerance.  Nothing is asserted here: a version that
+   rounds p at another point shows as ``false``.
+2. Timing: on a slice of the batch the new version is held to the plain
+   version within ``chip_smoke``'s tolerances, the base version within a
+   sanity bound (K5, K2: the same tolerances); then both are timed by CUDA
+   events (median of 25) in the order base, new, new, base.
+
+Prints the card's name and power limit, then one JSON line per case and
+per kernel and shape.
 """
 
 from __future__ import annotations
@@ -30,59 +42,151 @@ from layoutdm_tpu_torch.ops import attention, attention_blockdiag
 from layoutdm_tpu_torch.ops.cuda_build import load_library
 
 H, HD, HP = smoke.FLAG_H, smoke.FLAG_HD, 64
+D = H * HD
+SCALE = HD ** -0.5
+SERVE = ((1, 125), (64, 125), (1024, 125), (256, 500))
 SHAPES = {  # (B, S) per kernel: the serving and throughput batches, and S = 500
-    "K5": ((1, 125), (64, 125), (1024, 125), (256, 500)),
+    "K1": SERVE,
+    "K6": SERVE,
+    "K5": SERVE,
     "K2": ((1024, 125), (256, 500)),
+}
+# (name, B, S, q and k scale) of the accuracy cases
+CASES = [(f"sharp_s{S}", 16, S, smoke.SHARP) for S in (125, 129)] + [
+    (f"edge_s{S}", 16, S, 1.0) for S in (127, 128, 129)]
+# a base version that is off by more than this does not run the function
+SANITY_TOL = 0.1
+BUILDS = {  # kernel: (source, the port's binding)
+    "K1": ("attention_qkv.cu", attention.kernel_library),
+    "K6": ("attention_smajor.cu", attention.smajor_kernel_library),
+    "K4": ("attention_block.cu", attention.block_kernel_library),
+    "K5": ("attention_blockdiag.cu", attention_blockdiag.kernel_library),
+    "K2": ("attention_qkv_bwd.cu", attention.bwd_kernel_library),
 }
 
 
 def entry_points(base: pathlib.Path) -> dict:
     """{kernel: {"base": fn, "new": fn}}, both bound like the port's own."""
-    new = {"K5": attention_blockdiag.kernel_library().lib.attention_blockdiag_launch,
-           "K2": attention.bwd_kernel_library().lib.attention_qkv_bwd_launch}
-    sources = {"K5": "attention_blockdiag.cu", "K2": "attention_qkv_bwd.cu"}
     out = {}
-    for k, fn in new.items():
-        src = base / "layoutdm_tpu_torch" / "csrc" / sources[k]
+    for k, (source, library) in BUILDS.items():
+        fn = getattr(library().lib, source.replace(".cu", "_launch"))
+        src = base / "layoutdm_tpu_torch" / "csrc" / source
         old = getattr(load_library(f"compare_base_{k}", [str(src.resolve())]).lib, fn.__name__)
         old.argtypes, old.restype = fn.argtypes, fn.restype
         out[k] = {"base": old, "new": fn}
     return out
 
 
-def k5_call(fn, B, S):
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _slab(g, shape, sharp=1.0):
+    """A random bf16 slab on the card whose first 2D columns (q, k) are
+    scaled by ``sharp``."""
+    x = torch.randn(shape, generator=g)
+    x[..., : 2 * D] *= sharp
+    return x.cuda().bfloat16()
+
+
+def _attention_err(got, want) -> tuple:
+    """(max abs error, within chip_smoke's tolerance, mean error over the
+    mean |want|)."""
+    err, mean_rel, ok = smoke.attention_errors(got, want)
+    return err, ok, mean_rel
+
+
+def k1_call(fn, B, S, sharp=1.0):
     g = torch.Generator().manual_seed(B * 1000 + S)
-    qkv = smoke.padded_slab(g, B, S, H, HD, HP, torch.bfloat16)
-    out = torch.empty((B, S, H * HP), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream().cuda_stream
+    qkv = _slab(g, (B, S, 3 * D), sharp)
+    out = torch.empty((B, S, D), dtype=qkv.dtype, device=qkv.device)
 
     def run(qkv=qkv, out=out):
-        assert fn(qkv.data_ptr(), out.data_ptr(), qkv.shape[0], S, H, HP, HD ** -0.5, 1,
-                  stream) == 0
+        assert fn(qkv.data_ptr(), out.data_ptr(), qkv.shape[0], S, H, HD, SCALE, 1,
+                  _stream()) == 0
         return out
 
     def err():
         sub = qkv[:8].contiguous()
         got = run(sub, torch.empty_like(out[:8]))
-        want = attention_blockdiag.blockdiag_attention_reference(sub, H, HP, HD ** -0.5)
-        e = (got.float() - want.float()).abs().max().item()
-        assert e <= smoke.BF16_TOL and not got.view(-1, H, HP)[..., HD:].count_nonzero(), e
-        return e
+        return _attention_err(got, attention.attention_qkv_reference(sub, H))
+
+    return run, err
+
+
+def k6_call(fn, B, S, sharp=1.0):
+    g = torch.Generator().manual_seed(B * 1000 + S)
+    qkv = _slab(g, (S, B, 3 * D), sharp)
+    bias = (0.5 * torch.randn((3 * D,), generator=g)).cuda().bfloat16()
+    out = torch.empty((B, S, D), dtype=qkv.dtype, device=qkv.device)
+
+    def run(qkv=qkv, out=out):
+        assert fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), qkv.shape[1], S, H, HD,
+                  SCALE, 1, _stream()) == 0
+        return out
+
+    def err():
+        sub = qkv[:, :8].contiguous()
+        got = run(sub, torch.empty_like(out[:8]))
+        return _attention_err(got, attention.attention_qkv_smajor_reference(sub, bias, H))
+
+    return run, err
+
+
+def k4_err(fn, B, S, sharp=1.0) -> tuple:
+    """K4's (max abs error, within chip_smoke's tolerance, mean error over
+    the mean |want|) on one input, W_q and W_k rows scaled by ``sharp``."""
+    g = torch.Generator().manual_seed(B * 1000 + S)
+    x = (0.5 * torch.randn((B, S, D), generator=g)).cuda().bfloat16()
+    w_qkv = torch.randn((3 * D, D), generator=g) * D ** -0.5
+    w_qkv[: 2 * D] *= sharp
+    p = {"w_qkv": w_qkv, "b_qkv": 0.1 * torch.randn((3 * D,), generator=g),
+         "w_out": torch.randn((D, D), generator=g) * D ** -0.5,
+         "b_out": 0.1 * torch.randn((D,), generator=g)}
+    p = {k: v.cuda().bfloat16() for k, v in p.items()}
+    got = torch.empty_like(x)
+    assert fn(x.data_ptr(), p["w_qkv"].data_ptr(), p["b_qkv"].data_ptr(), p["w_out"].data_ptr(),
+              p["b_out"].data_ptr(), got.data_ptr(), B, S, H, HD, SCALE, 1, _stream()) == 0
+    want = attention.attention_block_reference(x, **p, num_heads=H)
+    diff = (got.float() - want.float()).abs()
+    mean_rel = diff.mean().item() / want.float().abs().mean().item()
+    try:
+        smoke._check_fused("", got, want)
+        return diff.max().item(), True, mean_rel
+    except AssertionError:
+        return diff.max().item(), False, mean_rel
+
+
+def k5_call(fn, B, S):
+    g = torch.Generator().manual_seed(B * 1000 + S)
+    qkv = smoke.padded_slab(g, B, S, H, HD, HP, torch.bfloat16)
+    out = torch.empty((B, S, H * HP), dtype=qkv.dtype, device=qkv.device)
+
+    def run(qkv=qkv, out=out):
+        assert fn(qkv.data_ptr(), out.data_ptr(), qkv.shape[0], S, H, HP, SCALE, 1,
+                  _stream()) == 0
+        return out
+
+    def err():
+        sub = qkv[:8].contiguous()
+        got = run(sub, torch.empty_like(out[:8]))
+        want = attention_blockdiag.blockdiag_attention_reference(sub, H, HP, SCALE)
+        assert not got.view(-1, H, HP)[..., HD:].count_nonzero()
+        return _attention_err(got, want)
 
     return run, err
 
 
 def k2_call(fn, B, S):
     g = torch.Generator().manual_seed(B * 1000 + S)
-    qkv = torch.randn((B, S, 3 * H * HD), generator=g).cuda().bfloat16()
-    do = torch.randn((B, S, H * HD), generator=g).cuda().bfloat16()
+    qkv = torch.randn((B, S, 3 * D), generator=g).cuda().bfloat16()
+    do = torch.randn((B, S, D), generator=g).cuda().bfloat16()
     out = torch.empty_like(qkv)
     stats = torch.empty((B, H, S, 2), device=qkv.device)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def run(qkv=qkv, do=do, out=out):
         assert fn(qkv.data_ptr(), do.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                  qkv.shape[0], S, H, HD, HD ** -0.5, 1, stream) == 0
+                  qkv.shape[0], S, H, HD, SCALE, 1, _stream()) == 0
         return out
 
     def err():
@@ -90,10 +194,12 @@ def k2_call(fn, B, S):
         got = run(sub, dsub, torch.empty_like(sub))
         want = attention.attention_qkv_bwd_reference(sub, dsub, H).float()
         rel = ((got.float() - want).abs().max() / want.abs().max()).item()
-        assert rel <= smoke.BWD_BF16_TOL, rel
-        return rel
+        return rel, rel <= smoke.BWD_BF16_TOL, None
 
     return run, err
+
+
+CALLS = {"K1": k1_call, "K6": k6_call, "K5": k5_call, "K2": k2_call}
 
 
 def main(argv=None) -> int:
@@ -106,14 +212,30 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     fns = entry_points(pathlib.Path(args.base))
-    for kernel, make in (("K5", k5_call), ("K2", k2_call)):
+    for kernel in ("K1", "K6", "K4"):
+        for name, B, S, sharp in CASES:
+            res = {}
+            for v in ("base", "new"):
+                fn = fns[kernel][v]
+                res[v] = (k4_err(fn, B, S, sharp) if kernel == "K4"
+                          else CALLS[kernel](fn, B, S, sharp)[1]())
+            print(json.dumps({"kernel": kernel, "case": name,
+                              "err": {v: r[0] for v, r in res.items()},
+                              "mean_rel": {v: r[2] for v, r in res.items()},
+                              "within_tol": {v: r[1] for v, r in res.items()}}), flush=True)
+            if not res["new"][1]:
+                raise AssertionError(f"{kernel} case {name}: new version over the tolerance")
+    for kernel, make in CALLS.items():
         for B, S in SHAPES[kernel]:
             runs = {v: make(fns[kernel][v], B, S) for v in ("base", "new")}
             err = {v: runs[v][1]() for v in runs}
+            assert err["new"][1] and err["base"][0] <= SANITY_TOL, err
             ms = {"base": [], "new": []}
             for v in ("base", "new", "new", "base"):
                 ms[v].append(smoke.cuda_ms(runs[v][0]))
-            print(json.dumps({"kernel": kernel, "B": B, "S": S, "err": err, "ms": ms}),
+            print(json.dumps({"kernel": kernel, "B": B, "S": S,
+                              "err": {v: e[0] for v, e in err.items()},
+                              "mean_rel": {v: e[2] for v, e in err.items()}, "ms": ms}),
                   flush=True)
             del runs
             torch.cuda.empty_cache()

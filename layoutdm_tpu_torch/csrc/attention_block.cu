@@ -8,12 +8,11 @@
 // TPU package's scatter of the weights to 64-lane heads is a layout trick
 // with no counterpart here).  Rounding points as the TPU kernel:
 // projections accumulate in float32 and qkv (bias added) is rounded to the
-// io dtype; scores and softmax in float32, p rounded to the io dtype; p.v
+// io dtype; scores and softmax in float32, the NORMALISED p =
+// softmax(s * scale) over all S keys rounded to the io dtype; p.v
 // accumulates in float32 and o is rounded to the io dtype; the out
 // projection accumulates in float32, then bo and the residual x are added in
-// float32 before the one final rounding.  As in K1, the softmax is online,
-// so the rounded p is the unnormalised exp(s - m) and the division by the
-// row sum comes after p.v (the flash-attention equivalent).
+// float32 before the one final rounding.
 //
 // What bounds it on this card: at the flagship (B = 1024, S = 125, D = 464,
 // 8 heads of 58, bf16) the projections are ~220 GFLOP and the attention
@@ -26,8 +25,13 @@
 // sums over all heads, so a block that owns one head cannot finish a row.
 // One block takes one batch row and a tile of queries (64 in bf16, 32 in
 // float32) and loops over the heads.  For head h it projects Q_h for its
-// tile, then walks the keys in chunks (64 / 32), projecting K_h and V_h of
-// the chunk and folding the chunk into an online softmax; x and the weight
+// tile, then walks the keys twice in chunks (64 / 32).  Sweep 1 projects
+// K_h of each chunk and folds its scores into the row max and sum; sweep 2
+// projects V_h and forms p normalised by those, rounded, for p.v.  At
+// S <= 128 sweep 1 keeps the block's (tile, S) float32 scores in shared
+// memory, so sweep 2 projects only V_h; past 128 keys sweep 2 projects K_h
+// again and recomputes the scores (no online rescale of an unnormalised p:
+// the TPU kernel rounds the normalised p).  x and the weight
 // rows are staged through shared memory 64 (32) columns at a time, in two
 // stages, so that the next slice's asynchronous copies (cp.async) run under
 // this slice's products.  o_h, rounded, goes into a (tile, D) shared
@@ -37,7 +41,8 @@
 // device memory.  The price: every query tile of a row projects K and V of
 // all S keys again, ⌈S / tile⌉ times (2 at S = 125, 8 at S = 500 in bf16),
 // so the kernel does (2 + 4 ⌈S / tile⌉) / 6 of the projection FLOPs of a
-// single pass (1.67x at S = 125).  The products are wmma tensor-core tiles
+// single pass at S <= 128 (1.67x at S = 125) and (2 + 6 ⌈S / tile⌉) / 6
+// past it, K projected in both sweeps.  The products are wmma tensor-core tiles
 // in bf16 and float32 FMAs in float32; hd = 58 heads sit at 116-byte
 // offsets, so heads are staged at a padded width of 64.  Left for later:
 // one K/V projection per row shared by its query tiles (a cluster or a
@@ -59,6 +64,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kHdp = 64;  // head width staged in shared memory (hd <= 64)
 constexpr int kMaxD = 512;
+constexpr int kKeep = 128;  // at S <= kKeep the block keeps its scores over all keys
 
 template <typename T>
 struct Cfg;
@@ -88,7 +94,7 @@ template <typename T>
 struct Layout {
   static constexpr int QT = Cfg<T>::QT, KC = Cfg<T>::KC, XK = Cfg<T>::XK, NC = Cfg<T>::NC;
   static constexpr int LDH = kHdp + 8;  // q_s, k_s, v_s rows
-  static constexpr int LDS = KC + 4;    // s_s rows (float32)
+  static constexpr int LDS = kKeep + 4;  // s_s rows (float32)
   static constexpr int LDP = KC + 8;    // p_s rows
   static constexpr int LDA = kHdp + 4;  // oacc rows (float32)
   static constexpr int LDX = XK + 8;    // xs, ws rows
@@ -246,32 +252,38 @@ __global__ void __launch_bounds__(kThreads, 1)
     l_s[r] = 0.f;
   }
 
+  // scores of the chunk at key k0, s = q kᵀ, into s_s columns col0 ..
+  auto scores = [&](int col0) {
+    for (int t = warp; t < (QT / 16) * (KC / 16); t += kWarps) {
+      const int rt = t / (KC / 16), ct = t % (KC / 16);
+      typename MM::Acc a;
+      MM::zero(a);
+#pragma unroll
+      for (int kk = 0; kk < kHdp; kk += 16)
+        MM::template mma<true>(a, q_s + rt * 16 * LDH + kk, LDH, k_s + ct * 16 * LDH + kk, LDH);
+      MM::store(s_s + rt * 16 * LDS + col0 + ct * 16, a, LDS);
+    }
+  };
+  const bool keep = S <= kKeep;
+
   for (int h = 0; h < H; ++h) {
     project<T, QT, 1>(xb, wqkv, bqkv, S, D, hd, q0, h * hd, xs, ws, scratch, q_s);
+
+    // sweep 1: each chunk's scores folded into the row max m and sum l,
+    // one query row per warp at a time
     for (int k0 = 0; k0 < S; k0 += KC) {
-      project<T, KC, 2>(xb, wqkv, bqkv, S, D, hd, k0, D + h * hd, xs, ws, scratch, k_s);
-      __syncthreads();  // q_s, k_s and v_s are written
-
-      // scores of the chunk: s = q kᵀ
-      for (int t = warp; t < (QT / 16) * (KC / 16); t += kWarps) {
-        const int rt = t / (KC / 16), ct = t % (KC / 16);
-        typename MM::Acc a;
-        MM::zero(a);
-#pragma unroll
-        for (int kk = 0; kk < kHdp; kk += 16)
-          MM::template mma<true>(a, q_s + rt * 16 * LDH + kk, LDH, k_s + ct * 16 * LDH + kk, LDH);
-        MM::store(s_s + rt * 16 * LDS + ct * 16, a, LDS);
-      }
+      project<T, KC, 1>(xb, wqkv, bqkv, S, D, hd, k0, D + h * hd, xs, ws, scratch, k_s);
+      __syncthreads();  // q_s and k_s are written
+      scores(keep ? k0 : 0);
       __syncthreads();
-
-      // online softmax over the chunk's keys, one query row per warp at a time
       for (int r = warp; r < QT; r += kWarps) {
+        const float* sr = s_s + r * LDS + (keep ? k0 : 0);
         float sv[KC / 32];
         float mx = -INFINITY;
 #pragma unroll
         for (int i = 0; i < KC / 32; ++i) {
           const int c = lane + 32 * i;
-          sv[i] = k0 + c < S ? s_s[r * LDS + c] * scale : -INFINITY;
+          sv[i] = k0 + c < S ? sr[c] * scale : -INFINITY;
           mx = fmaxf(mx, sv[i]);
         }
         mx = tile::warp_max(mx);
@@ -279,22 +291,38 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float m_new = fmaxf(m_old, mx);  // key k0 < S is real: finite
         float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < KC / 32; ++i) {
-          const float p = expf(sv[i] - m_new);  // 0 past S
-          sum += p;
-          p_s[r * LDP + lane + 32 * i] = from_f32<T>(p);
-        }
+        for (int i = 0; i < KC / 32; ++i) sum += expf(sv[i] - m_new);  // 0 past S
         sum = tile::warp_sum(sum);
-        const float corr = expf(m_old - m_new);  // 0 on the first chunk
-        for (int d = lane; d < kHdp; d += 32) oacc[r * LDA + d] *= corr;
         if (lane == 0) {
           m_s[r] = m_new;
-          l_s[r] = l_s[r] * corr + sum;
+          l_s[r] = l_s[r] * expf(m_old - m_new) + sum;  // 0 * l on the first chunk
+        }
+      }
+    }
+
+    // sweep 2: p = softmax(s * scale) rounded to the io dtype, oacc += p v
+    for (int k0 = 0; k0 < S; k0 += KC) {
+      if (keep) {
+        project<T, KC, 1>(xb, wqkv, bqkv, S, D, hd, k0, 2 * D + h * hd, xs, ws, scratch, v_s);
+        __syncthreads();  // v_s is written; the row statistics are final
+      } else {
+        project<T, KC, 2>(xb, wqkv, bqkv, S, D, hd, k0, D + h * hd, xs, ws, scratch, k_s);
+        __syncthreads();  // k_s and v_s are written
+        scores(0);
+        __syncthreads();
+      }
+      for (int r = warp; r < QT; r += kWarps) {
+        const float* sr = s_s + r * LDS + (keep ? k0 : 0);
+        const float m = m_s[r], inv_l = 1.f / l_s[r];
+#pragma unroll
+        for (int i = 0; i < KC / 32; ++i) {
+          const int c = lane + 32 * i;
+          const float p = k0 + c < S ? expf(sr[c] * scale - m) * inv_l : 0.f;
+          p_s[r * LDP + c] = from_f32<T>(p);
         }
       }
       __syncthreads();
 
-      // oacc += p v
       for (int t = warp; t < (QT / 16) * (kHdp / 16); t += kWarps) {
         const int rt = t / (kHdp / 16), ct = t % (kHdp / 16);
         typename MM::Acc a;
@@ -306,10 +334,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();
-    // o_h = oacc / l, rounded to the io dtype, into its head's columns
+    // o_h, rounded to the io dtype, into its head's columns
     for (int i = tid; i < QT * hd; i += kThreads) {
       const int r = i / hd, j = i % hd;
-      o_s[r * LDO + h * hd + j] = from_f32<T>(oacc[r * LDA + j] / l_s[r]);
+      o_s[r * LDO + h * hd + j] = from_f32<T>(oacc[r * LDA + j]);
     }
     __syncthreads();
     for (int i = tid; i < QT * LDA; i += kThreads) oacc[i] = 0.f;

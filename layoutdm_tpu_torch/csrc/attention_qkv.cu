@@ -6,8 +6,8 @@
 // on the packed (B, S, 3D) projection output, with q/k/v the column blocks
 // [h*hd], [D + h*hd], [2D + h*hd]; no mask; output (B, S, D) in the input
 // dtype (float32 or bfloat16).  Scores, softmax and accumulation are float32;
-// in bfloat16 mode the probabilities are rounded to bfloat16 before the p.v
-// product, as the TPU kernel does.
+// in bfloat16 mode the normalised probabilities are rounded to bfloat16
+// before the p.v product, as the TPU kernel does.
 //
 // The kernel body, what bounds it and what its design does about that are
 // in attention_fwd.cuh, shared with K6 (the sequence-major slab).

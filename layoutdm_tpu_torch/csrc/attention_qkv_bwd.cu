@@ -94,14 +94,6 @@ constexpr size_t smem_bytes_b() {
          sizeof(float) * 2 * kChunkB;
 }
 
-// zero columns hd .. HDP of `rows` shared rows (the loads never write them)
-template <int HDP>
-__device__ __forceinline__ void zero_pad_cols(bf16* s, int rows, int hd) {
-  const int n = HDP - hd;
-  for (int i = threadIdx.x; i < rows * n; i += blockDim.x)
-    s[i / n * (HDP + 8) + hd + i % n] = __float2bfloat16(0.f);
-}
-
 // pass A: softmax statistics, delta and dq for 64 query rows
 template <int HDP>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -135,7 +127,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const bf16* dow = do_s + warp * 16 * P;
   const float c2 = scale * mma::kLog2e;
 
-  if (mode != 16 && hd < HDP) zero_pad_cols<HDP>(q_s, 2 * kTile + 2 * kChunkA, hd);
+  if (mode != 16 && hd < HDP) mma::zero_pad_cols<HDP>(q_s, 2 * kTile + 2 * kChunkA, hd);
   mma::load_rows(q_s, P, head + q0 * ld, ld, kTile, S - q0, hd, HDP, mode);
   mma::load_rows(do_s, P, dhead + (long long)q0 * D, D, kTile, S - q0, hd, HDP, mode);
 
@@ -290,7 +282,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   bf16* vw = v_s + warp * 16 * P;
   const float c2 = scale * mma::kLog2e;
 
-  if (mode != 16 && hd < HDP) zero_pad_cols<HDP>(k_s, 2 * kTile + 2 * kChunkB, hd);
+  if (mode != 16 && hd < HDP) mma::zero_pad_cols<HDP>(k_s, 2 * kTile + 2 * kChunkB, hd);
   mma::load_rows(k_s, P, head + D + k0 * ld, ld, kTile, S - k0, hd, HDP, mode);
   mma::load_rows(v_s, P, head + 2 * D + k0 * ld, ld, kTile, S - k0, hd, HDP, mode);
 

@@ -13,7 +13,8 @@
 // says what bounds the kernel and what its design does about that): at the
 // flagship width it runs the native head width (hd = 58), no 64-lane pad.
 // The strided token rows change no access pattern that matters: K1 already
-// loads each head's columns as scalars, 116 bytes per token in bf16.
+// copies one 16-byte window per head and token, B * 3D elements apart here
+// instead of 3D.
 
 #include "attention_fwd.cuh"
 

@@ -1,8 +1,9 @@
 // Warp-level bf16 tensor-core building blocks for the attention kernels
-// (attention_blockdiag.cu = K5, attention_qkv_bwd.cu = K2): raw
-// mma.sync.aligned.m16n8k16 products with float32 accumulators, ldmatrix
-// fragment loads from shared memory, and row copies between a head's
-// column block in device memory and a shared-memory tile.
+// (attention_fwd.cuh = K1 and K6, attention_blockdiag.cu = K5,
+// attention_qkv_bwd.cu = K2): raw mma.sync.aligned.m16n8k16 products with
+// float32 accumulators, ldmatrix fragment loads from shared memory, and row
+// copies between a head's column block in device memory and a shared-memory
+// tile.
 //
 // Fragments follow the PTX ISA's m16n8k16 layouts.  With g = lane / 4 and
 // t = lane % 4, a float32 accumulator tile (16 x 8) holds in c[0], c[1] the
@@ -220,6 +221,15 @@ __device__ __forceinline__ void load_rows(bf16* dst, int pitch, const bf16* __re
     const int r = i / cols, c = i % cols;
     dst[r * pitch + c] = r < rows_ok ? src[r * ld + c] : __float2bfloat16(0.f);
   }
+}
+
+// Mode 2: zero columns hd .. HDP of `rows` shared rows of pitch HDP + 8
+// (the element copies never write them).  Whole block.
+template <int HDP>
+__device__ __forceinline__ void zero_pad_cols(bf16* s, int rows, int hd) {
+  const int n = HDP - hd;
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x)
+    s[i / n * (HDP + 8) + hd + i % n] = __float2bfloat16(0.f);
 }
 
 // Mode 16, after the caller's cp_async_wait and before its barrier: each

@@ -19,6 +19,12 @@ from layoutdm_tpu_torch.ops.attention import (
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+# bf16, elementwise atol + rtol |want|: the plain version and the TPU kernel
+# round the normalised p and the output at the same points, so they differ
+# by one output rounding step and by p's rounding flipped where their
+# float32 exps differ in the last bits
+BF16_RTOL, BF16_ATOL = 2 ** -7, 2 ** -8
+SHARP = 3.0  # q and k scaled by this: one key takes most of a row's weight
 
 
 def _slab(B, S, H, hd, seed=0):
@@ -51,6 +57,22 @@ def test_reference_matches_pallas_interpret_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(
         got.float().numpy(), _jax(qkv, H, dtype=jnp.bfloat16), atol=BF16_TOL
+    )
+
+
+@pytest.mark.parametrize(
+    "S,sharp", [(125, SHARP), (127, 1.0), (128, 1.0), (129, 1.0), (129, SHARP)]
+)
+def test_reference_matches_pallas_interpret_bf16_sharp_and_edges(S, sharp):
+    """Sharp scores, where rounding p at another point than the TPU kernel
+    shows, and the 128-key edge of the port's kernel."""
+    B, H, hd = 2, 2, 58
+    qkv = _slab(B, S, H, hd, seed=3)
+    qkv[..., : 2 * H * hd] *= sharp
+    got = attention_qkv_reference(torch.as_tensor(qkv).to(torch.bfloat16), H)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H * hd)
+    np.testing.assert_allclose(
+        got.float().numpy(), _jax(qkv, H, dtype=jnp.bfloat16), rtol=BF16_RTOL, atol=BF16_ATOL
     )
 
 

@@ -25,10 +25,14 @@ F32_TOL = 6e-3
 BF16_TOL = 2e-2
 
 
-def _inputs(seed, B, S):
+SHARP = 3.0  # W_q and W_k scaled by this: one key takes most of a row's weight
+
+
+def _inputs(seed, B, S, sharp=1.0):
     rs = np.random.RandomState(seed)
     x = (rs.randn(B, S, D) * 0.5).astype(np.float32)
     wq = (rs.randn(D, 3 * D) * 0.05).astype(np.float32)  # flax (in, out)
+    wq[:, : 2 * D] *= sharp
     bq = (rs.randn(3 * D) * 0.05).astype(np.float32)
     wo = (rs.randn(D, D) * 0.05).astype(np.float32)
     bo = (rs.randn(D) * 0.05).astype(np.float32)
@@ -43,9 +47,17 @@ def _port(x, wq, bq, wo, bo, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S", [(2, 9), (1, 25)])
-def test_block_matches_jax_kernel(dtype, B, S):
-    x, wq, bq, wo, bo = _inputs(0, B, S)
+@pytest.mark.parametrize(
+    "B,S,sharp",
+    [pytest.param(2, 9, 1.0, id="2-9"), pytest.param(1, 25, 1.0, id="1-25"),
+     pytest.param(1, 125, SHARP, id="1-125-sharp"), pytest.param(1, 127, 1.0, id="1-127"),
+     pytest.param(1, 128, 1.0, id="1-128"), pytest.param(1, 129, 1.0, id="1-129"),
+     pytest.param(1, 129, SHARP, id="1-129-sharp")],
+)
+def test_block_matches_jax_kernel(dtype, B, S, sharp):
+    """Also on sharp scores and on both sides of the 128 keys up to which
+    the port's kernel keeps its scores."""
+    x, wq, bq, wo, bo = _inputs(0, B, S, sharp)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     hp = head_pad_target(HD)
     # the JAX Block casts the weights to the compute dtype, then scatters

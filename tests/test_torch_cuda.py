@@ -29,7 +29,18 @@ from layoutdm_tpu_torch.ops import ffn
 from layoutdm_tpu_torch.ops.samplers import gumbel_noise, row_uniform
 
 F32_TOL = 1e-4
+# K1, K5, K6 in bfloat16: kernel and plain version round the normalised p
+# and the output at the same points, so the outputs agree bit for bit
+# except where float32 sums taken in another order flip a rounding (of one
+# p, a step of p times |v|, or of an output).  Every output within
+# BF16_TOL; the mean error within ATTN_BF16_MEAN_REL of the mean |output|,
+# one output step (2**-8) on at most one output in 16.  A p rounded at
+# another point (an online softmax's unnormalised exp(s - m)) moves about
+# half of all outputs by a step.
 BF16_TOL = 2e-2
+ATTN_BF16_MEAN_REL = 2 ** -12
+# q and k scaled by this in the sharp-score cases
+SHARP = 3.0
 # K2 against its twin, relative to the largest gradient: f32 differs by
 # summation order only; bf16 by p and ds rounded to bf16 from f32 values
 # that differ in their last bits, and the bf16 output rounding (2**-8)
@@ -60,11 +71,26 @@ BWD_EDGES = [
     (2, 40, 2, 5, torch.bfloat16, 0.0),
 ]
 BLOCKDIAG_EDGES = [
-    (2, S, 2, hd, hp, dtype)
-    for S in (1, 16, 64, 65, 128, 129, 1024)
+    (2, S, 2, hd, hp, dtype, 1.0)
+    for S in (1, 16, 64, 65, 127, 128, 129, 1024)
     for hd, hp in ((58, 64), (100, 128))
     for dtype in (torch.float32, torch.bfloat16)
 ]
+# K1's and K6's: one key, the 128-key chunk (two sweeps past it), the
+# 128-query block, in both dtypes; and sharp scores on both sides of 128
+FWD_EDGES = [
+    (2, S, 8, 58, dtype, 1.0)
+    for S in (1, 127, 128, 129)
+    for dtype in (torch.float32, torch.bfloat16)
+] + [(4, S, 8, 58, torch.bfloat16, SHARP) for S in (125, 129, 500)]
+
+
+def _assert_attention_close(got, want):
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=F32_TOL if want.dtype == torch.float32 else BF16_TOL)
+    if want.dtype == torch.bfloat16:
+        diff = (got.float() - want.float()).abs().mean().item()
+        assert diff <= ATTN_BF16_MEAN_REL * want.float().abs().mean().item(), diff
 
 
 @pytest.fixture
@@ -81,26 +107,37 @@ def _slab(B, S, H, hd, seed=0):
 
 
 @pytest.mark.parametrize(
-    "B,S,H,hd,dtype,scale",
+    "B,S,H,hd,dtype,scale,sharp",
     [
-        (4, 125, 8, 58, torch.float32, 0.0),
-        (4, 125, 8, 58, torch.bfloat16, 0.0),
-        (2, 500, 8, 58, torch.float32, 0.0),
-        (3, 1, 2, 128, torch.float32, 0.0),
-        (2, 33, 3, 64, torch.bfloat16, 58 ** -0.5),
-        (1, 70, 1, 5, torch.float32, 0.0),
-    ],
+        (4, 125, 8, 58, torch.float32, 0.0, 1.0),
+        (4, 125, 8, 58, torch.bfloat16, 0.0, 1.0),
+        (2, 500, 8, 58, torch.float32, 0.0, 1.0),
+        (3, 1, 2, 128, torch.float32, 0.0, 1.0),
+        (2, 33, 3, 64, torch.bfloat16, 58 ** -0.5, 1.0),
+        (1, 70, 1, 5, torch.float32, 0.0, 1.0),
+        # the bf16 copy modes and row widths: 16-byte windows at every lead
+        # (hd 30 and 58 over 4 heads), element copies where no window fits
+        # (d_model 174, hd 124, odd hd), rows 32, 96 and 128 wide
+        (2, 65, 4, 30, torch.bfloat16, 0.0, 1.0),
+        (2, 65, 4, 24, torch.bfloat16, 0.0, 1.0),
+        (2, 65, 3, 58, torch.bfloat16, 0.0, 1.0),
+        (2, 40, 2, 124, torch.bfloat16, 0.0, 1.0),
+        (2, 40, 2, 5, torch.bfloat16, 0.0, 1.0),
+        (2, 65, 4, 96, torch.bfloat16, 0.0, 1.0),
+        (2, 200, 2, 128, torch.bfloat16, 0.0, 1.0),
+    ] + [(B, S, H, hd, dtype, 0.0, sharp) for B, S, H, hd, dtype, sharp in FWD_EDGES],
 )
-def test_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, scale):
-    qkv = torch.as_tensor(_slab(B, S, H, hd)).to(cuda, dtype)
+def test_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, scale, sharp):
+    qkv = _slab(B, S, H, hd)
+    qkv[..., : 2 * H * hd] *= sharp  # q and k
+    qkv = torch.as_tensor(qkv).to(cuda, dtype)
     before = attention.LAUNCHES
     got = fused_attention_qkv(qkv, H, scale=scale)
     torch.cuda.synchronize()
     assert attention.LAUNCHES == before + 1
     want = attention_qkv_reference(qkv, H, scale=scale)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     assert got.dtype == dtype and got.shape == (B, S, H * hd)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    _assert_attention_close(got, want)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -155,10 +192,7 @@ def test_autograd_function_on_card_matches_plain_version(cuda, dtype):
     (o @ w).float().square().sum().backward()
     torch.cuda.synchronize()
     assert (attention.LAUNCHES, attention.LAUNCHES_BWD) == (launches[0] + 1, launches[1] + 1)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(
-        o.detach().float(), attention_qkv_reference(qkv, H).float(), rtol=0, atol=tol
-    )
+    _assert_attention_close(o.detach(), attention_qkv_reference(qkv, H))
     want = attention_qkv_bwd_reference(qkv, o.grad, H).float()
     tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
     err = (x.grad.float() - want).abs().max().item()
@@ -333,27 +367,37 @@ def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
         ffn.fused_ln_ffn_residual(torch.zeros(2, 520, device=cuda), **big, activation="relu")
 
 
-def _block_params(rs, D, device, dtype):
+def _block_params(rs, D, device, dtype, sharp=1.0):
     t = lambda a: torch.as_tensor(a.astype(np.float32)).to(device, dtype)
-    return {"w_qkv": t(rs.randn(3 * D, D) / np.sqrt(D)), "b_qkv": t(0.1 * rs.randn(3 * D)),
+    w_qkv = rs.randn(3 * D, D) / np.sqrt(D)
+    w_qkv[: 2 * D] *= sharp  # the rows of W_q and W_k
+    return {"w_qkv": t(w_qkv), "b_qkv": t(0.1 * rs.randn(3 * D)),
             "w_out": t(rs.randn(D, D) / np.sqrt(D)), "b_out": t(0.1 * rs.randn(D))}
 
 
 @pytest.mark.parametrize(
-    "B,S,H,hd,dtype",
+    "B,S,H,hd,dtype,sharp",
     [
-        (2, 125, 8, 58, torch.float32),
-        (3, 125, 8, 58, torch.bfloat16),
-        (1, 500, 8, 58, torch.bfloat16),
-        (1, 500, 8, 58, torch.float32),
-        (2, 1, 2, 64, torch.float32),
-        (2, 33, 3, 40, torch.bfloat16),
-        (1, 70, 1, 5, torch.float32),
+        (2, 125, 8, 58, torch.float32, 1.0),
+        (3, 125, 8, 58, torch.bfloat16, 1.0),
+        (1, 500, 8, 58, torch.bfloat16, 1.0),
+        (1, 500, 8, 58, torch.float32, 1.0),
+        (2, 1, 2, 64, torch.float32, 1.0),
+        (2, 33, 3, 40, torch.bfloat16, 1.0),
+        (1, 70, 1, 5, torch.float32, 1.0),
+        # both sides of the 128 keys up to which the block keeps its
+        # scores, and sharp scores (the rows of W_q and W_k scaled)
+        (2, 127, 8, 58, torch.bfloat16, 1.0),
+        (2, 128, 8, 58, torch.float32, 1.0),
+        (2, 129, 8, 58, torch.bfloat16, 1.0),
+        (2, 129, 8, 58, torch.float32, 1.0),
+        (4, 125, 8, 58, torch.bfloat16, SHARP),
+        (4, 129, 8, 58, torch.bfloat16, SHARP),
     ],
 )
-def test_block_kernel_matches_plain_version(cuda, B, S, H, hd, dtype):
+def test_block_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, sharp):
     rs = np.random.RandomState(5)
-    p = _block_params(rs, H * hd, cuda, dtype)
+    p = _block_params(rs, H * hd, cuda, dtype, sharp)
     x = torch.as_tensor((0.5 * rs.randn(B, S, H * hd)).astype(np.float32)).to(cuda, dtype)
     before = attention.LAUNCHES_BLOCK
     got = attention.fused_attention_block(x, **p, num_heads=H)
@@ -407,20 +451,23 @@ def _padded_slab(rs, B, S, H, hd, hp):
 
 
 @pytest.mark.parametrize(
-    "B,S,H,hd,hp,dtype",
+    "B,S,H,hd,hp,dtype,sharp",
     [
-        (2, 125, 8, 58, 64, torch.float32),
-        (3, 125, 8, 58, 64, torch.bfloat16),
-        (1, 500, 8, 58, 64, torch.float32),
-        (2, 500, 8, 58, 64, torch.bfloat16),
-        (3, 21, 8, 64, 64, torch.float32),
-        (2, 21, 4, 100, 128, torch.bfloat16),
+        (2, 125, 8, 58, 64, torch.float32, 1.0),
+        (3, 125, 8, 58, 64, torch.bfloat16, 1.0),
+        (1, 500, 8, 58, 64, torch.float32, 1.0),
+        (2, 500, 8, 58, 64, torch.bfloat16, 1.0),
+        (3, 21, 8, 64, 64, torch.float32, 1.0),
+        (2, 21, 4, 100, 128, torch.bfloat16, 1.0),
+        (4, 125, 8, 58, 64, torch.bfloat16, SHARP),
+        (4, 129, 8, 58, 64, torch.bfloat16, SHARP),
     ] + BLOCKDIAG_EDGES,
 )
-def test_blockdiag_kernel_matches_plain_version(cuda, B, S, H, hd, hp, dtype):
+def test_blockdiag_kernel_matches_plain_version(cuda, B, S, H, hd, hp, dtype, sharp):
     """K5 against its plain version; the padded output lanes exactly 0."""
-    qkv = torch.as_tensor(_padded_slab(np.random.RandomState(7), B, S, H, hd, hp))
-    qkv = qkv.to(cuda, dtype)
+    qkv = _padded_slab(np.random.RandomState(7), B, S, H, hd, hp)
+    qkv.reshape(B, S, 3, H, hp)[:, :, :2] *= sharp  # q and k
+    qkv = torch.as_tensor(qkv).to(cuda, dtype)
     scale = hd ** -0.5
     launches = attention_blockdiag.LAUNCHES_BLOCKDIAG
     got = attention_blockdiag.blockdiag_attention(qkv, H, hp, scale)
@@ -428,8 +475,7 @@ def test_blockdiag_kernel_matches_plain_version(cuda, B, S, H, hd, hp, dtype):
     assert attention_blockdiag.LAUNCHES_BLOCKDIAG == launches + 1
     want = attention_blockdiag.blockdiag_attention_reference(qkv, H, hp, scale)
     assert got.dtype == dtype and got.shape == (B, S, H * hp)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    _assert_attention_close(got, want)
     assert got.view(B, S, H, hp)[..., hd:].count_nonzero().item() == 0
 
 
@@ -448,20 +494,24 @@ def test_blockdiag_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize(
-    "B,S,H,hd,dtype",
+    "B,S,H,hd,dtype,sharp",
     [
-        (2, 125, 8, 58, torch.float32),
-        (3, 125, 8, 58, torch.bfloat16),
-        (1, 500, 8, 58, torch.float32),
-        (2, 500, 8, 64, torch.bfloat16),
-        (5, 21, 4, 64, torch.float32),
-        (4, 21, 8, 58, torch.bfloat16),
-    ],
+        (2, 125, 8, 58, torch.float32, 1.0),
+        (3, 125, 8, 58, torch.bfloat16, 1.0),
+        (1, 500, 8, 58, torch.float32, 1.0),
+        (2, 500, 8, 64, torch.bfloat16, 1.0),
+        (5, 21, 4, 64, torch.float32, 1.0),
+        (4, 21, 8, 58, torch.bfloat16, 1.0),
+        # element copies (d_model 174, no 16-byte window), bias added
+        (2, 65, 3, 58, torch.bfloat16, 1.0),
+    ] + FWD_EDGES,
 )
-def test_smajor_kernel_matches_plain_version(cuda, B, S, H, hd, dtype):
+def test_smajor_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, sharp):
     """K6 against its plain version on sequence-major slabs plus a bias."""
     rs = np.random.RandomState(8)
-    qkv = torch.as_tensor(rs.randn(S, B, 3 * H * hd).astype(np.float32)).to(cuda, dtype)
+    qkv = rs.randn(S, B, 3 * H * hd).astype(np.float32)
+    qkv[..., : 2 * H * hd] *= sharp  # q and k
+    qkv = torch.as_tensor(qkv).to(cuda, dtype)
     bias = torch.as_tensor(0.5 * rs.randn(3 * H * hd).astype(np.float32)).to(cuda, dtype)
     launches = attention.LAUNCHES_SMAJOR
     got = attention.fused_attention_qkv_smajor(qkv, bias, H)
@@ -469,8 +519,7 @@ def test_smajor_kernel_matches_plain_version(cuda, B, S, H, hd, dtype):
     assert attention.LAUNCHES_SMAJOR == launches + 1
     want = attention.attention_qkv_smajor_reference(qkv, bias, H)
     assert got.dtype == dtype and got.shape == (B, S, H * hd)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    _assert_attention_close(got, want)
 
 
 @pytest.mark.parametrize("path", ["attn_v2", "smajor"])

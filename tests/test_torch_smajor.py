@@ -26,6 +26,10 @@ ATOL = 1e-5  # the JAX test's own (`tests/test_pallas_attention.py:266`)
 # the JAX kernel in interpret mode rounds its f32 dot operands to bf16 (the
 # MXU's default precision), the plain version does not
 INTERPRET_TOL = 2e-2
+# bf16, elementwise atol + rtol |want|: both add the bias in bf16 and round
+# the normalised p and the output at the same points (`test_torch_attention`)
+BF16_RTOL, BF16_ATOL = 2 ** -7, 2 ** -8
+SHARP = 3.0  # q and k scaled by this: one key takes most of a row's weight
 
 
 def _inputs(rs, B, S, H, hd):
@@ -49,6 +53,25 @@ def test_plain_version_matches_jax_kernel(B, S, H, hd):
     # on a CPU tensor the wrapper is the plain version
     np.testing.assert_array_equal(tattention.fused_attention_qkv_smajor(
         torch.as_tensor(qkv_sb), torch.as_tensor(bias), H).numpy(), got)
+
+
+@pytest.mark.parametrize(
+    "S,sharp", [(125, SHARP), (127, 1.0), (128, 1.0), (129, 1.0), (129, SHARP)]
+)
+def test_plain_version_matches_jax_kernel_bf16_sharp_and_edges(S, sharp):
+    """bf16 on sharp scores and at the 128-key edge of the port's kernel."""
+    B, H, hd = 2, 2, 58
+    qkv, bias = _inputs(np.random.RandomState(4), B, S, H, hd)
+    qkv[..., : 2 * H * hd] *= sharp
+    qkv_sb = np.ascontiguousarray(qkv.swapaxes(0, 1))
+    want = jax_attention.fused_attention_qkv_smajor(
+        jnp.asarray(qkv_sb, jnp.bfloat16), jnp.asarray(bias, jnp.bfloat16), num_heads=H,
+        interpret=True)
+    got = tattention.attention_qkv_smajor_reference(
+        torch.as_tensor(qkv_sb).to(torch.bfloat16), torch.as_tensor(bias).to(torch.bfloat16), H)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H * hd)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
 def test_bias_rounds_once_in_the_io_dtype():
