@@ -18,11 +18,14 @@ FFN 1856, 4 layers; random weights from a seed) and checks them:
                 at the training shapes and the tile edges (hd 32 .. 128,
                 S = 1 .. 500), errors and times;
 3a. ffn_kernel  the LayerNorm-FFN-residual kernel (K3) against its plain
-                version, float32 and bfloat16, three activations, errors
-                and times beside the unfused path;
+                version, float32 and bfloat16, three activations, and at
+                the bf16 body's edges (63 .. 129 rows, F = 200, D = 512),
+                errors and times beside the unfused path;
 3b. block_kernel the attention-block kernel (K4) against its plain version
-                at S=125, 129 and 500, also on sharp scores, errors and
-                times beside the unfused path;
+                at S = 1 .. 500, 1, 3 and 8 heads, hd 57, also on sharp
+                scores, bf16 also held to the mean-error check, errors and
+                times beside the unfused path, K and V projections per row,
+                and how many clusters the card holds at once;
 3c. blockdiag_kernel the padded-head attention kernel (K5) against its
                 plain version, float32 and bfloat16, S = 21, 125 and 500,
                 sharp scores and the tile edges (S = 1 .. 1024 at hp 64
@@ -363,22 +366,28 @@ def phase_ffn_kernel(device="cuda") -> dict:
     g = torch.Generator().manual_seed(12)
     D, Fd = FLAG_H * FLAG_HD, FLAG_F
 
-    def params(dtype):
+    def params(dtype, D=D, Fd=Fd):
         p = {"ln_scale": _randn(g, (D,), 0.1, 1.0), "ln_bias": _randn(g, (D,), 0.1),
              "w1": _randn(g, (Fd, D), D ** -0.5), "b1": _randn(g, (Fd,), 0.1),
              "w2": _randn(g, (D, Fd), Fd ** -0.5), "b2": _randn(g, (D,), 0.1)}
         return {k: v.to(device, torch.float32 if k.startswith("ln") else dtype)
                 for k, v in p.items()}
 
-    cases = [(f"s125_{dn}_{act}", (8, 125), dt, act)
+    cases = [(f"s125_{dn}_{act}", (8, 125), dt, act, D, Fd)
              for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
              for act in ("relu", "gelu", "gelu2")]
-    cases += [("m21_bf16_relu", (21,), torch.bfloat16, "relu"),
-              ("m21_f32_gelu2", (21,), torch.float32, "gelu2")]
+    cases += [("m21_bf16_relu", (21,), torch.bfloat16, "relu", D, Fd),
+              ("m21_f32_gelu2", (21,), torch.float32, "gelu2", D, Fd)]
+    # the bf16 body's edges: rows on both sides of its 64-row tile, F not
+    # a multiple of its 32-column chunk, D = 512
+    cases += [(f"m{m}_bf16", (m,), torch.bfloat16, "gelu", D, Fd)
+              for m in (63, 64, 65, 127, 128, 129)]
+    cases += [("f200_bf16", (130,), torch.bfloat16, "relu", D, 200),
+              ("d512_bf16", (129,), torch.bfloat16, "gelu2", 512, Fd)]
     errs = {}
-    for name, lead, dtype, act in cases:
-        p = params(dtype)
-        x = _randn(g, (*lead, D), 0.5).to(device, dtype)
+    for name, lead, dtype, act, d, f in cases:
+        p = params(dtype, d, f)
+        x = _randn(g, (*lead, d), 0.5).to(device, dtype)
         got = fused_ln_ffn_residual(x, **p, activation=act)
         torch.cuda.synchronize()
         want = ln_ffn_residual_reference(x, **p, activation=act)
@@ -417,6 +426,7 @@ def phase_block_kernel(device="cuda") -> dict:
 
     from layoutdm_tpu_torch.ops.attention import (
         attention_block_reference,
+        block_kernel_library,
         fused_attention_block,
         fused_attention_qkv,
     )
@@ -424,29 +434,41 @@ def phase_block_kernel(device="cuda") -> dict:
     g = torch.Generator().manual_seed(13)
     H, D = FLAG_H, FLAG_H * FLAG_HD
 
-    def params(dtype, sharp=1.0):
+    def params(dtype, sharp=1.0, D=D):
         p = {"w_qkv": _randn(g, (3 * D, D), D ** -0.5), "b_qkv": _randn(g, (3 * D,), 0.1),
              "w_out": _randn(g, (D, D), D ** -0.5), "b_out": _randn(g, (D,), 0.1)}
         p["w_qkv"][: 2 * D] *= sharp  # the rows of W_q and W_k
         return {k: v.to(device, dtype) for k, v in p.items()}
 
-    cases = [("s125_f32", 8, 125, torch.float32, 1.0),
-             ("s125_bf16", 64, 125, torch.bfloat16, 1.0),
-             ("s500_bf16", 8, 500, torch.bfloat16, 1.0),
-             ("s500_f32", 2, 500, torch.float32, 1.0),
+    cases = [("s125_f32", 8, 125, torch.float32, 1.0, H, FLAG_HD),
+             ("s125_bf16", 64, 125, torch.bfloat16, 1.0, H, FLAG_HD),
+             ("s500_bf16", 8, 500, torch.bfloat16, 1.0, H, FLAG_HD),
+             ("s500_f32", 2, 500, torch.float32, 1.0, H, FLAG_HD),
              # sharp scores, where rounding p at another point shows, on
-             # both sides of the 128 keys up to which scores are kept
-             ("sharp_s125_bf16", 16, 125, torch.bfloat16, SHARP),
-             ("sharp_s129_bf16", 16, 129, torch.bfloat16, SHARP),
-             ("s129_f32", 4, 129, torch.float32, 1.0)]
+             # both sides of the 128 keys the cluster body takes
+             ("sharp_s125_bf16", 16, 125, torch.bfloat16, SHARP, H, FLAG_HD),
+             ("sharp_s129_bf16", 16, 129, torch.bfloat16, SHARP, H, FLAG_HD),
+             ("s129_f32", 4, 129, torch.float32, 1.0, H, FLAG_HD)]
+    # the bf16 cluster body's edges (one block a head): S, the head count
+    # (the cluster's size) and an odd head width
+    cases += [(f"s{S}_bf16", 4, S, torch.bfloat16, 1.0, H, FLAG_HD) for S in (1, 33, 127, 128)]
+    cases += [("h1_s33_bf16", 4, 33, torch.bfloat16, 1.0, 1, 64),
+              ("h3_s33_bf16", 4, 33, torch.bfloat16, 1.0, 3, 40),
+              ("hd57_s100_bf16", 4, 100, torch.bfloat16, 1.0, H, 57)]
     errs = {}
-    for name, B, S, dtype, sharp in cases:
-        p = params(dtype, sharp)
-        x = _randn(g, (B, S, D), 0.5).to(device, dtype)
-        got = fused_attention_block(x, **p, num_heads=H)
+    for name, B, S, dtype, sharp, h, hd in cases:
+        p = params(dtype, sharp, h * hd)
+        x = _randn(g, (B, S, h * hd), 0.5).to(device, dtype)
+        got = fused_attention_block(x, **p, num_heads=h)
         torch.cuda.synchronize()
-        want = attention_block_reference(x, **p, num_heads=H)
+        want = attention_block_reference(x, **p, num_heads=h)
         errs[name] = _check_fused(f"K4 case {name}", got, want)
+        if dtype == torch.bfloat16:  # the normalised p rounded where the plain version rounds it
+            mean_rel = attention_errors(got, want)[1]
+            if not mean_rel <= ATTN_BF16_MEAN_REL:
+                raise AssertionError(f"K4 case {name}: mean error {mean_rel} of the mean "
+                                     "|output|, over the tolerance")
+    lib = block_kernel_library().lib
 
     times = {}
     for name, B, S in TIMED_SHAPES:
@@ -465,11 +487,14 @@ def phase_block_kernel(device="cuda") -> dict:
             # q·kᵀ and p·v
             **bound(2 * B * S * D * 2 + 4 * D * D * 2 + 4 * D * 2,
                     B * (8 * S * D * D + 4 * S * S * D)),
-            "kv_projection_passes": -(-S // 64),  # query tiles of 64 per row
+            # times each row's K and V are projected, as the launch routes it
+            "kv_projection_passes": lib.attention_block_kv_passes(S, H, FLAG_HD),
         }
         del x, p
         torch.cuda.empty_cache()
-    out = {"phase": "block_kernel", "max_abs_err": errs, "times": times}
+    out = {"phase": "block_kernel", "max_abs_err": errs, "times": times,
+           # clusters of the bf16 body the card holds at once (H blocks each)
+           "resident_clusters": lib.attention_block_max_clusters(H)}
     emit(out)
     return out
 

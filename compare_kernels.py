@@ -1,8 +1,9 @@
-"""Time the attention kernels K1, K6 (packed-qkv forward, batch- and
-sequence-major), K5 (padded heads) and K2 (backward) of this checkout
-against the same kernels built from another checkout, on one NVIDIA GPU,
-and hold both versions of K1, K6 and K4 (attention block) to their plain
-versions on sharp scores and at the 128-key edge.
+"""Time the kernels K1, K6 (packed-qkv attention forward, batch- and
+sequence-major), K5 (padded heads), K2 (backward), K3 (LayerNorm-FFN-
+residual) and K4 (attention block) of this checkout against the same
+kernels built from another checkout, on one NVIDIA GPU, and hold both
+versions of K1, K6 and K4 to their plain versions on sharp scores and at
+the 128-key edge.
 
     python3 compare_kernels.py --base DIR
 
@@ -10,7 +11,7 @@ DIR is the root of another checkout of the repo, for example the parent
 commit unpacked with ``git archive``.  Each kernel is built twice, from this
 checkout's sources and from DIR's, with the port's nvcc flags, and called
 through its C entry point on the same bfloat16 inputs at the flagship widths
-(8 heads of 58; K5 on heads padded to 64).
+(8 heads of 58, FFN 1856; K5 on heads padded to 64).
 
 1. Accuracy: both versions of K1, K6 and K4 against the plain version on
    the cases `chip_smoke` adds for rounding the normalised softmax (q and k
@@ -21,7 +22,8 @@ through its C entry point on the same bfloat16 inputs at the flagship widths
 2. Timing: on a slice of the batch the new version is held to the plain
    version within ``chip_smoke``'s tolerances, the base version within a
    sanity bound (K5, K2: the same tolerances); then both are timed by CUDA
-   events (median of 25) in the order base, new, new, base.
+   events (median of 25) in the order base, new, new, base, at the serving
+   batches (B = 1, 64, 1024 at S = 125) and at B = 256, S = 500.
 
 Prints the card's name and power limit, then one JSON line per case and
 per kernel and shape.
@@ -38,7 +40,7 @@ import sys
 import torch
 
 import chip_smoke as smoke
-from layoutdm_tpu_torch.ops import attention, attention_blockdiag
+from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
 from layoutdm_tpu_torch.ops.cuda_build import load_library
 
 H, HD, HP = smoke.FLAG_H, smoke.FLAG_HD, 64
@@ -50,6 +52,8 @@ SHAPES = {  # (B, S) per kernel: the serving and throughput batches, and S = 500
     "K6": SERVE,
     "K5": SERVE,
     "K2": ((1024, 125), (256, 500)),
+    "K3": SERVE,
+    "K4": SERVE,
 }
 # (name, B, S, q and k scale) of the accuracy cases
 CASES = [(f"sharp_s{S}", 16, S, smoke.SHARP) for S in (125, 129)] + [
@@ -62,14 +66,16 @@ BUILDS = {  # kernel: (source, the port's binding)
     "K4": ("attention_block.cu", attention.block_kernel_library),
     "K5": ("attention_blockdiag.cu", attention_blockdiag.kernel_library),
     "K2": ("attention_qkv_bwd.cu", attention.bwd_kernel_library),
+    "K3": ("ffn.cu", ffn.kernel_library),
 }
+ENTRY = {"K3": "ln_ffn_residual_launch"}  # where the C name is not <source>_launch
 
 
 def entry_points(base: pathlib.Path) -> dict:
     """{kernel: {"base": fn, "new": fn}}, both bound like the port's own."""
     out = {}
     for k, (source, library) in BUILDS.items():
-        fn = getattr(library().lib, source.replace(".cu", "_launch"))
+        fn = getattr(library().lib, ENTRY.get(k, source.replace(".cu", "_launch")))
         src = base / "layoutdm_tpu_torch" / "csrc" / source
         old = getattr(load_library(f"compare_base_{k}", [str(src.resolve())]).lib, fn.__name__)
         old.argtypes, old.restype = fn.argtypes, fn.restype
@@ -133,9 +139,20 @@ def k6_call(fn, B, S, sharp=1.0):
     return run, err
 
 
-def k4_err(fn, B, S, sharp=1.0) -> tuple:
-    """K4's (max abs error, within chip_smoke's tolerance, mean error over
-    the mean |want|) on one input, W_q and W_k rows scaled by ``sharp``."""
+def _fused_err(got, want) -> tuple:
+    """K3's or K4's (max abs error, within chip_smoke's tolerance: 2**-7 of
+    the largest output, and for K4 the mean within ATTN_BF16_MEAN_REL; mean
+    error over the mean |want|)."""
+    diff = (got.float() - want.float()).abs()
+    mean_rel = diff.mean().item() / want.float().abs().mean().item()
+    try:
+        smoke._check_fused("", got, want)
+        return diff.max().item(), True, mean_rel
+    except AssertionError:
+        return diff.max().item(), False, mean_rel
+
+
+def k4_call(fn, B, S, sharp=1.0):
     g = torch.Generator().manual_seed(B * 1000 + S)
     x = (0.5 * torch.randn((B, S, D), generator=g)).cuda().bfloat16()
     w_qkv = torch.randn((3 * D, D), generator=g) * D ** -0.5
@@ -144,17 +161,50 @@ def k4_err(fn, B, S, sharp=1.0) -> tuple:
          "w_out": torch.randn((D, D), generator=g) * D ** -0.5,
          "b_out": 0.1 * torch.randn((D,), generator=g)}
     p = {k: v.cuda().bfloat16() for k, v in p.items()}
-    got = torch.empty_like(x)
-    assert fn(x.data_ptr(), p["w_qkv"].data_ptr(), p["b_qkv"].data_ptr(), p["w_out"].data_ptr(),
-              p["b_out"].data_ptr(), got.data_ptr(), B, S, H, HD, SCALE, 1, _stream()) == 0
-    want = attention.attention_block_reference(x, **p, num_heads=H)
-    diff = (got.float() - want.float()).abs()
-    mean_rel = diff.mean().item() / want.float().abs().mean().item()
-    try:
-        smoke._check_fused("", got, want)
-        return diff.max().item(), True, mean_rel
-    except AssertionError:
-        return diff.max().item(), False, mean_rel
+    out = torch.empty_like(x)
+
+    def run(x=x, out=out):
+        assert fn(x.data_ptr(), p["w_qkv"].data_ptr(), p["b_qkv"].data_ptr(),
+                  p["w_out"].data_ptr(), p["b_out"].data_ptr(), out.data_ptr(), x.shape[0], S,
+                  H, HD, SCALE, 1, _stream()) == 0
+        return out
+
+    def err():
+        sub = x[:8].contiguous()
+        got = run(sub, torch.empty_like(sub))
+        e = _fused_err(got, attention.attention_block_reference(sub, **p, num_heads=H))
+        return e[0], e[1] and e[2] <= smoke.ATTN_BF16_MEAN_REL, e[2]
+
+    return run, err
+
+
+def k3_call(fn, B, S):
+    g = torch.Generator().manual_seed(B * 1000 + S)
+    Fd = smoke.FLAG_F
+    x = (0.5 * torch.randn((B, S, D), generator=g)).cuda().bfloat16()
+    p = {"ln_scale": 1 + 0.1 * torch.randn((D,), generator=g),
+         "ln_bias": 0.1 * torch.randn((D,), generator=g),
+         "w1": torch.randn((Fd, D), generator=g) * D ** -0.5,
+         "b1": 0.1 * torch.randn((Fd,), generator=g),
+         "w2": torch.randn((D, Fd), generator=g) * Fd ** -0.5,
+         "b2": 0.1 * torch.randn((D,), generator=g)}
+    p = {k: v.cuda() if k.startswith("ln") else v.cuda().bfloat16() for k, v in p.items()}
+    out = torch.empty_like(x)
+    relu = ffn.ACTIVATION_CODES["relu"]
+
+    def run(x=x, out=out):
+        assert fn(x.data_ptr(), p["ln_scale"].data_ptr(), p["ln_bias"].data_ptr(),
+                  p["w1"].data_ptr(), p["b1"].data_ptr(), p["w2"].data_ptr(),
+                  p["b2"].data_ptr(), out.data_ptr(), x.numel() // D, D, Fd, relu, 1e-6, 1,
+                  _stream()) == 0
+        return out
+
+    def err():
+        sub = x[:8].contiguous()
+        got = run(sub, torch.empty_like(sub))
+        return _fused_err(got, ffn.ln_ffn_residual_reference(sub, **p, activation="relu"))
+
+    return run, err
 
 
 def k5_call(fn, B, S):
@@ -199,7 +249,8 @@ def k2_call(fn, B, S):
     return run, err
 
 
-CALLS = {"K1": k1_call, "K6": k6_call, "K5": k5_call, "K2": k2_call}
+CALLS = {"K1": k1_call, "K6": k6_call, "K5": k5_call, "K2": k2_call, "K3": k3_call,
+         "K4": k4_call}
 
 
 def main(argv=None) -> int:
@@ -217,8 +268,7 @@ def main(argv=None) -> int:
             res = {}
             for v in ("base", "new"):
                 fn = fns[kernel][v]
-                res[v] = (k4_err(fn, B, S, sharp) if kernel == "K4"
-                          else CALLS[kernel](fn, B, S, sharp)[1]())
+                res[v] = CALLS[kernel](fn, B, S, sharp)[1]()
             print(json.dumps({"kernel": kernel, "case": name,
                               "err": {v: r[0] for v, r in res.items()},
                               "mean_rel": {v: r[2] for v, r in res.items()},

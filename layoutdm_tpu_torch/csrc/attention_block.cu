@@ -19,35 +19,59 @@
 // ~30 GFLOP, 0.25 ms at the dense bf16 tensor-core peak, against ~240 MB of
 // x, out and weights (0.07 ms): it is bound by operations.
 //
-// What this simple design does about it: the TPU kernel holds a whole
-// (Gb, S, D) block, both weight matrices and the (Gb S, 3D) qkv slab in
-// VMEM; none of that fits a Hopper block's 227 KB, and the out projection
-// sums over all heads, so a block that owns one head cannot finish a row.
-// One block takes one batch row and a tile of queries (64 in bf16, 32 in
-// float32) and loops over the heads.  For head h it projects Q_h for its
-// tile, then walks the keys twice in chunks (64 / 32).  Sweep 1 projects
-// K_h of each chunk and folds its scores into the row max and sum; sweep 2
-// projects V_h and forms p normalised by those, rounded, for p.v.  At
-// S <= 128 sweep 1 keeps the block's (tile, S) float32 scores in shared
-// memory, so sweep 2 projects only V_h; past 128 keys sweep 2 projects K_h
-// again and recomputes the scores (no online rescale of an unnormalised p:
-// the TPU kernel rounds the normalised p).  x and the weight
-// rows are staged through shared memory 64 (32) columns at a time, in two
-// stages, so that the next slice's asynchronous copies (cp.async) run under
-// this slice's products.  o_h, rounded, goes into a (tile, D) shared
-// buffer; after the last head the block runs the out projection from it,
-// streaming Wo 32 (16) output columns at a time in the same two stages,
-// and adds bo and x.  The (B, S, 3D) slab never reaches
-// device memory.  The price: every query tile of a row projects K and V of
-// all S keys again, ⌈S / tile⌉ times (2 at S = 125, 8 at S = 500 in bf16),
-// so the kernel does (2 + 4 ⌈S / tile⌉) / 6 of the projection FLOPs of a
-// single pass at S <= 128 (1.67x at S = 125) and (2 + 6 ⌈S / tile⌉) / 6
-// past it, K projected in both sweeps.  The products are wmma tensor-core tiles
-// in bf16 and float32 FMAs in float32; hd = 58 heads sit at 116-byte
-// offsets, so heads are staged at a padded width of 64.  Left for later:
-// one K/V projection per row shared by its query tiles (a cluster or a
-// per-row pass), more blocks per SM, wgmma and TMA.
+// What the bfloat16 design does about it (attention_block_cluster_kernel;
+// S <= 128, H <= 8, hd <= 64, D a multiple of 8): the TPU kernel holds a
+// whole (Gb, S, D) block, both weight matrices and the (Gb S, 3D) qkv slab
+// in VMEM; a Hopper block has 227 KB, and the out projection sums over all
+// heads, so the heads of one row must meet.  They meet in a thread-block
+// cluster: one cluster per batch row, one block per head, two warpgroups of
+// 64 rows and a producer warp that issues every TMA load.
+// - The row's x (128 rows, zero past S, SW128 atoms of 64 columns, 128 KB)
+//   arrives once by TMA, each block loading its share of the atoms
+//   multicast to the whole cluster, so L2 serves the row once, not H times.
+// - Each block projects its head's Q, K and V exactly once: wgmma m64n192
+//   (q, k and v each 64 columns, zero past hd), the head's W rows streaming
+//   in atom by atom through a 3-stage ring (24 KB a stage).  The bias is
+//   added in float32 and q, k and vᵀ are rounded into SW128 tiles.  So each
+//   row's K and V are projected once (the tiled body below projects them
+//   once per query tile of 64).
+// - Attention per warpgroup: s = q kᵀ over all 128 keys (wgmma m64n128),
+//   the softmax of each row in registers (a row lies in the four threads of
+//   a quad), the normalised p rounded and fed from registers as the A
+//   operand of p v (wgmma m64n64).  K1's warp-level body (mma_sync.cuh) ran
+//   this step 1.7x slower here: with one block per SM its 8 warps cannot
+//   hide their latencies.
+// - o_h, rounded, goes into x's atom h (dead by then), at columns lead ..
+//   lead + hd where lead = h hd % 8, zero around them; once every block is
+//   done with its x (a cluster barrier), the producer copies the 16 KB atom
+//   into every peer (cp.async.bulk into distributed shared memory, each
+//   peer receiving from one block at a time) and each block waits for H - 1
+//   copies on one mbarrier.
+// - Block h then projects output columns [h hd, (h + 1) hd) for all rows:
+//   per head j, wgmma m64n64 of o_j's atom by Wo's 64 rows of head h from
+//   column j hd - lead (TMA boxes start 16-byte aligned; o_j is zero where
+//   the box holds a neighbour's columns), every Wo box loaded ahead into its
+//   own slot; bo and x are added in float32 and rounded once.
+// What bounds this design (clock64 per phase on an H100, PERF.md): one
+// block per SM (201 KB), so its phases do not overlap another block's; each
+// block takes in ~380 KB from L2 (x, its head's W_qkv and Wo rows) and 112
+// KB of o from its peers (distributed shared memory, ~17 bytes a cycle);
+// the projection, its operands streaming in, reaches ~60% of the tensor
+// cores' peak; and 8-block clusters leave 12 of the 132 SMs idle.
+//
+// float32, and bf16 past S = 128, 8 heads, a multiple of 8 in D or a head
+// window of 64 (lead + hd), keep the tiled body
+// (attention_block_kernel below): one block per (batch row, 64 queries in
+// bf16 / 32 in float32) loops over the heads, projecting Q_h for its tile
+// and K_h, V_h of all S keys in chunks (64 / 32), x and the weights staged
+// through shared memory by cp.async, wmma tiles in bf16 and float32 FMAs
+// in float32.  It sweeps the keys twice: sweep 1 projects K_h and folds
+// the scores into the row max and sum; sweep 2 projects V_h (and, past 128
+// keys, K_h again) and forms p normalised by those, rounded, for p.v.  So
+// it projects K and V ⌈S / 64⌉ times per row in bf16.
 
+#include "hopper.cuh"
+#include "mma_sync.cuh"
 #include "tile_mma.cuh"
 
 #include <climits>
@@ -401,6 +425,399 @@ cudaError_t launch_typed(const void* x, const void* wqkv, const void* bqkv, cons
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16, S <= 128: one cluster per batch row, one block per head
+// ---------------------------------------------------------------------------
+namespace cl {
+
+constexpr int kRows = 128;                 // the row's tokens: two warpgroups of 64
+constexpr int kMaxS = kRows;
+constexpr int kMaxHeads = 8;               // the portable cluster size
+constexpr int kConsumers = 256;            // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kMaxAtoms = kMaxD / 64;      // SW128 column atoms of a row
+constexpr int kXAtom = kRows * 128;        // 16 KB
+constexpr int kWBox = 64 * 128;            // 64 weight rows of one atom, 8 KB
+constexpr int kWStage = 3 * kWBox;         // q, k and v rows of one atom
+constexpr int kWStages = 3;
+constexpr int kQkvTile = kRows * 128;      // q, k (SW128, 128 rows) and vᵀ (two 64-row atoms)
+constexpr int kROff = kMaxAtoms * kXAtom;  // the ring: weight stages, then q, k, v and Wo
+constexpr int kRBytes = kWStages * kWStage;
+constexpr int kWoOff = kROff + 56 * 1024;  // Wo's first two atoms, past q, k, v
+constexpr int kBiasOff = kROff + kRBytes;  // the head's q, k, v bias, float32
+constexpr int kBarOff = kBiasOff + 3 * kHdp * 4;
+constexpr int kNumBars = kMaxAtoms + 2 * kWStages + kMaxHeads + 3;
+constexpr int kSmem = kBarOff + kNumBars * 8 + 1024;  // + the base's alignment to 1024
+static_assert(3 * kQkvTile <= kWoOff - kROff && kWoOff + 2 * kWBox <= kBiasOff &&
+                  (kMaxHeads - 2) * kWBox <= 3 * kQkvTile,
+              "q, k, v and Wo's atoms share the ring");
+
+// where head j's columns start in their 16-byte window of Wo's rows: TMA
+// boxes start 16-byte aligned, so o_j sits at columns lead .. lead + hd of
+// its atom and Wo's box starts at column j hd - lead
+__host__ __device__ constexpr int lead(int j, int hd) { return (j * hd) % 8; }
+
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_block_cluster_kernel(const __grid_constant__ CUtensorMap x_map,
+                                   const __grid_constant__ CUtensorMap wqkv_map,
+                                   const __grid_constant__ CUtensorMap wo_map,
+                                   const bf16* __restrict__ x, const bf16* __restrict__ bqkv,
+                                   const bf16* __restrict__ bo, bf16* __restrict__ out, int S,
+                                   int H, int hd, float c2) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* xs = smem;  // the row's x; then atom h' holds o of head h'
+  unsigned char* ring = smem + kROff;
+  // q, k: (128 rows, 64 columns) SW128; vᵀ: (64 columns, 128 rows) as two
+  // SW128 atoms of 64 rows, the K-major B operand of p v
+  unsigned char* q_s = ring;
+  unsigned char* k_s = ring + kQkvTile;
+  unsigned char* vt_s = ring + 2 * kQkvTile;
+  auto wo_slot = [&](int j) { return j < 2 ? smem + kWoOff + j * kWBox : ring + (j - 2) * kWBox; };
+  float* bias_s = reinterpret_cast<float*>(smem + kBiasOff);  // [3][kHdp]
+  uint64_t* bar_x = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* full_w = bar_x + kMaxAtoms;
+  uint64_t* empty_w = full_w + kWStages;
+  uint64_t* full_o = empty_w + kWStages;    // Wo's atom j landed
+  uint64_t* qkv_free = full_o + kMaxHeads;  // every warp's attention is done
+  uint64_t* o_ready = qkv_free + 1;         // o_h is in its atom, for the copies
+  uint64_t* bar_heads = o_ready + 1;        // every peer's o has landed here
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int D = H * hd, natoms = (D + 63) / 64;
+  const int h = (int)cluster_rank(), b = blockIdx.x / H;
+  if (tid == 0) {
+    for (int j = 0; j < kMaxAtoms; ++j) mbar_init(&bar_x[j], 1);
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full_w[s], 1);
+      mbar_init(&empty_w[s], kConsumers / 32);  // lane 0 of each consumer warp
+    }
+    for (int j = 0; j < kMaxHeads; ++j) mbar_init(&full_o[j], 1);
+    mbar_init(qkv_free, kConsumers / 32);  // lane 0 of each consumer warp
+    mbar_init(o_ready, kConsumers / 32);
+    mbar_init(bar_heads, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bar_heads, (H - 1) * kXAtom);
+  }
+  for (int i = tid; i < 3 * kHdp; i += kThreads) {
+    const int t = i / kHdp, c = i % kHdp;
+    bias_s[i] = c < hd ? __bfloat162float(bqkv[t * D + h * hd + c]) : 0.f;
+  }
+  // every block's barriers are set before any multicast or copy lands on them
+  cluster_arrive();
+  cluster_wait();
+
+  if (warp == kConsumers / 32) {  // the producer warp
+    // Wo's rows of head h, columns of head j from its window: atoms 0, 1
+    // past q, k, v in the ring, the rest over q, k, v once attention is done
+    auto load_wo = [&](int j) {
+      mbar_expect_tx(&full_o[j], kWBox);
+      tma_load(wo_slot(j), &wo_map, &full_o[j], j * hd - lead(j, hd), h * hd);
+    };
+    if (lane == 0) {
+      // x: every atom expected here, this block's share loaded for all
+      for (int j = 0; j < natoms; ++j) mbar_expect_tx(&bar_x[j], kXAtom);
+      for (int j = h; j < natoms; j += H) {
+        if (H > 1)
+          tma_load_multicast(xs + j * kXAtom, &x_map, &bar_x[j], (uint16_t)((1u << H) - 1),
+                             64 * j, 0, b);
+        else
+          tma_load(xs + j * kXAtom, &x_map, &bar_x[j], 64 * j, 0, b);
+      }
+      // W_q, W_k, W_v rows of head h, one column atom per stage
+      for (int j = 0; j < natoms; ++j) {
+        const int s = j % kWStages;
+        if (j >= kWStages) mbar_wait(&empty_w[s], (j / kWStages - 1) & 1);
+        mbar_expect_tx(&full_w[s], kWStage);
+        for (int t = 0; t < 3; ++t)
+          tma_load(ring + s * kWStage + t * kWBox, &wqkv_map, &full_w[s], 64 * j, 0, t * H + h);
+      }
+      // Wo's stages lie in the ring: wait until it is drained
+      for (int j = natoms > kWStages ? natoms - kWStages : 0; j < natoms; ++j)
+        mbar_wait(&empty_w[j % kWStages], (j / kWStages) & 1);
+      for (int j = 0; j < H && j < 2; ++j) load_wo(j);
+      mbar_wait(qkv_free, 0);
+      for (int j = 2; j < H; ++j) load_wo(j);
+    }
+    __syncwarp();
+    cluster_arrive();  // A (see the consumers)
+    cluster_wait();
+    if (lane == 0) {  // o_h to every peer, one 16 KB copy each, each peer receiving
+                      // from one block at a time
+      mbar_wait(o_ready, 0);
+      const uint32_t src = smem_u32(xs + h * kXAtom), bar = smem_u32(bar_heads);
+      for (int i = 1; i < H; ++i) {
+        const int p = (h + i) % H;
+        bulk_copy_cluster(map_rank(src, p), xs + h * kXAtom, kXAtom, map_rank(bar, p));
+      }
+    }
+    __syncwarp();
+    cluster_arrive();  // C
+    cluster_wait();
+    return;
+  }
+
+  const int w = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 64 * w + 16 * (warp & 3) + g;  // rows r0, r0 + 8 of the accumulators
+
+  // 1. q, k, v of head h for this warpgroup's 64 rows, one atom (4 k-steps,
+  //    x and W zero past D) at a time
+  {
+    float acc[96];
+    const uint64_t da0 = desc<1>(xs + w * 64 * 128), db0 = desc<1>(ring);
+    auto issue = [&](int j, int first) {
+      const int s = j % kWStages;
+      mbar_wait(&bar_x[j], 0);
+      mbar_wait(&full_w[s], (j / kWStages) & 1);
+      const uint64_t da = da0 + ((j * kXAtom) >> 4), db = db0 + ((s * kWStage) >> 4);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_ss<192>(acc, da + 2 * kk, db + 2 * kk, first ? kk : 1);
+      wg_commit();
+      fence_regs(acc);
+    };
+    issue(0, 1);
+    for (int j = 1; j < natoms; ++j) {
+      issue(j, 0);
+      wg_wait<1>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty_w[(j - 1) % kWStages]);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty_w[(natoms - 1) % kWStages]);
+    bar_sync(1, kConsumers);  // both warpgroups are done with the ring's weights
+    // bias added in float32, rounded; columns hd .. 64 zero
+#pragma unroll
+    for (int jb = 0; jb < 24; ++jb) {
+      const int which = jb >> 3, col = (jb & 7) * 8 + 2 * t4;
+      const bool ok0 = col < hd, ok1 = col + 1 < hd;
+      const float c0 = bias_s[which * kHdp + col], c1 = bias_s[which * kHdp + col + 1];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 8 * hh;
+        const float v0 = ok0 ? acc[4 * jb + 2 * hh] + c0 : 0.f;
+        const float v1 = ok1 ? acc[4 * jb + 2 * hh + 1] + c1 : 0.f;
+        if (which < 2) {
+          *reinterpret_cast<uint32_t*>((which ? k_s : q_s) + swz128(r * 128 + col * 2)) =
+              mma::pack_bf16x2(v0, v1);
+        } else {  // vᵀ: row = column of v, column = token
+          unsigned char* at = vt_s + (r >> 6) * (64 * 128);
+          const bf16 e0 = __float2bfloat16(v0), e1 = __float2bfloat16(v1);
+          *reinterpret_cast<bf16*>(at + swz128(col * 128 + (r & 63) * 2)) = e0;
+          *reinterpret_cast<bf16*>(at + swz128((col + 1) * 128 + (r & 63) * 2)) = e1;
+        }
+      }
+    }
+    fence_proxy_async();
+  }
+  cluster_arrive();  // A: this block reads its x no more
+  bar_sync(1, kConsumers);
+
+  // 2. attention for this warpgroup's 64 query rows: s = q kᵀ over the
+  //    128 keys (wgmma m64n128), the softmax of each row in registers (a
+  //    row lies in the four threads of a quad), the normalised p rounded
+  //    and fed as the A operand of p v (wgmma m64n64 from registers); o
+  //    rounded into x's atom h, which is o_h's place in every block
+  {
+    float sc[kRows / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHdp / 16; ++kk)
+      mma_ss<kRows>(sc, desc<1>(q_s + w * 64 * 128) + 2 * kk, desc<1>(k_s) + 2 * kk, kk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kRows / 2; ++i) {  // key 8 (i / 4) + 2 t4 + i % 2
+      const int key = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      sc[i] = key < S ? sc[i] * c2 : -INFINITY;
+      m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], sc[i]);
+    }
+    m[0] = mma::quad_max(m[0]);
+    m[1] = mma::quad_max(m[1]);
+#pragma unroll
+    for (int i = 0; i < kRows / 2; ++i) {
+      sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);  // 0 past S
+      l[(i >> 1) & 1] += sc[i];
+    }
+    const float inv_l[2] = {1.f / mma::quad_sum(l[0]), 1.f / mma::quad_sum(l[1])};
+    float o[kHdp / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      uint32_t a[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        a[q] = mma::pack_bf16x2(sc[8 * kk + 2 * q] * inv_l[q & 1],
+                                sc[8 * kk + 2 * q + 1] * inv_l[q & 1]);
+      mma_rs<kHdp>(o, a, desc<1>(vt_s + (kk >> 2) * (64 * 128)) + 2 * (kk & 3), kk);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    // columns lead .. lead + hd of the atom (zero around them): the window
+    // in which the out projection's Wo box starts 16-byte aligned
+    unsigned char* oh = xs + h * kXAtom;
+    const int ld = lead(h, hd);
+    auto put = [&](int r, int c, float v) {
+      const bf16 e = __float2bfloat16(v);
+      *reinterpret_cast<uint16_t*>(oh + swz128(r * 128 + c * 2)) =
+          *reinterpret_cast<const uint16_t*>(&e);
+    };
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      for (int c = t4; c < ld; c += 4) put(r, c, 0.f);
+#pragma unroll
+      for (int n = 0; n < kHdp / 8; ++n) {
+        const int c = 8 * n + 2 * t4 + ld;  // o's columns past hd are 0
+        if (ld % 2 == 0) {
+          if (c < 64)
+            *reinterpret_cast<uint32_t*>(oh + swz128(r * 128 + c * 2)) =
+                mma::pack_bf16x2(o[4 * n + 2 * hh], o[4 * n + 2 * hh + 1]);
+        } else {
+          if (c < 64) put(r, c, o[4 * n + 2 * hh]);
+          if (c + 1 < 64) put(r, c + 1, o[4 * n + 2 * hh + 1]);
+        }
+      }
+    }
+  }
+  fence_proxy_async();  // o_h's stores, before the copies read them
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive(qkv_free);  // this warp reads q, k, v no more
+    mbar_arrive(o_ready);   // and its rows of o_h are in place
+  }
+
+  // 3. the producer copies o_h to every peer once no block reads its x
+  //    (A); meanwhile the residual x and bo of this thread's outputs
+  uint32_t xr[kHdp / 8][2];
+  float2 bor[kHdp / 8];
+  const bool pairs = hd % 2 == 0;
+#pragma unroll
+  for (int n = 0; n < kHdp / 8; ++n) {
+    const int col = 8 * n + 2 * t4;
+    bor[n] = make_float2(col < hd ? __bfloat162float(bo[h * hd + col]) : 0.f,
+                         col + 1 < hd ? __bfloat162float(bo[h * hd + col + 1]) : 0.f);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      const long long at = ((long long)b * S + r) * D + h * hd + col;
+      xr[n][hh] = 0u;
+      if (pairs && r < S && col < hd) xr[n][hh] = *reinterpret_cast<const uint32_t*>(x + at);
+    }
+  }
+  cluster_wait();  // A
+  mbar_wait(bar_heads, 0);
+  cluster_arrive();  // C: every copy into this block has landed
+
+  // 4. out[:, h hd ..] = round(o Wo[h rows]ᵀ + bo + x), this warpgroup's
+  //    rows: one atom (64 columns of o_h', Wo's 64 columns from h' hd) per
+  //    head, zero past hd in o
+  float acc[32];
+  const uint64_t da0 = desc<1>(xs + w * 64 * 128);
+  auto issue_o = [&](int j, int first) {
+    mbar_wait(&full_o[j], 0);
+    const uint64_t da = da0 + ((j * kXAtom) >> 4), db = desc<1>(wo_slot(j));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ss<64>(acc, da + 2 * kk, db + 2 * kk, first ? kk : 1);
+    wg_commit();
+    fence_regs(acc);
+  };
+  issue_o(0, 1);
+  for (int j = 1; j < H; ++j) {
+    issue_o(j, 0);
+    wg_wait<1>();
+    fence_regs(acc);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int n = 0; n < kHdp / 8; ++n) {
+    const int col = 8 * n + 2 * t4;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      if (r >= S || col >= hd) continue;
+      const long long at = ((long long)b * S + r) * D + h * hd + col;
+      const float a0 = acc[4 * n + 2 * hh] + bor[n].x, a1 = acc[4 * n + 2 * hh + 1] + bor[n].y;
+      if (pairs) {
+        const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[n][hh]));
+        *reinterpret_cast<uint32_t*>(out + at) = mma::pack_bf16x2(a0 + xf.x, a1 + xf.y);
+      } else {
+        out[at] = __float2bfloat16(a0 + __bfloat162float(x[at]));
+        if (col + 1 < hd) out[at + 1] = __float2bfloat16(a1 + __bfloat162float(x[at + 1]));
+      }
+    }
+  }
+  cluster_wait();  // C: no block leaves while a copy may still read it
+}
+
+// whether the cluster body takes the shape (and, with ptrs, the pointers)
+inline bool takes(int S, int H, int hd, const void* const* ptrs, int n) {
+  bool ok = S <= kMaxS && H <= kMaxHeads && hd <= kHdp && (H * hd) % 8 == 0;
+  for (int j = 0; j < H; ++j) ok = ok && lead(j, hd) + hd <= kHdp;  // every window fits an atom
+  for (int i = 0; i < n; ++i) ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+  return ok;
+}
+
+inline cudaLaunchConfig_t config(int B, int H, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * H));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)H;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+inline cudaError_t launch(const void* x, const void* wqkv, const void* bqkv, const void* wo,
+                          const void* bo, void* out, int B, int S, int H, int hd, float scale,
+                          cudaStream_t stream) {
+  if ((long long)B * H > INT_MAX) return cudaErrorInvalidValue;
+  const int D = H * hd;
+  CUtensorMap x_map, wqkv_map, wo_map;
+  // x (B, S, D): one batch row's 128 tokens (zero past S) x 64 columns;
+  // Wqkv as (3H, hd, D): one head's 64 rows (zero past hd) x 64 columns;
+  // Wo (D, D): 64 rows x 64 columns from a 16-byte-aligned column
+  const uint64_t dx[3] = {(uint64_t)D, (uint64_t)S, (uint64_t)B};
+  const uint64_t sx[2] = {(uint64_t)D, (uint64_t)S * D};
+  const uint32_t bx[3] = {64, kRows, 1};
+  const uint64_t dq[3] = {(uint64_t)D, (uint64_t)hd, (uint64_t)3 * H};
+  const uint64_t sq[2] = {(uint64_t)D, (uint64_t)hd * D};
+  const uint32_t bq[3] = {64, 64, 1};
+  const uint64_t dw[2] = {(uint64_t)D, (uint64_t)D}, sw[1] = {(uint64_t)D};
+  const uint32_t bw[2] = {64, 64};
+  if (!hopper::make_map(&x_map, x, 3, dx, sx, bx, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&wqkv_map, wqkv, 3, dq, sq, bq, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&wo_map, wo, 2, dw, sw, bw, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_block_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(B, H, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, attention_block_cluster_kernel, x_map, wqkv_map, wo_map,
+                           static_cast<const bf16*>(x), static_cast<const bf16*>(bqkv),
+                           static_cast<const bf16*>(bo), static_cast<bf16*>(out), S, H, hd,
+                           scale * mma::kLog2e);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace cl
+
 }  // namespace
 
 // x, out: contiguous (B, S, H*hd); w_qkv (3D, D), b_qkv (3D,), w_out (D, D),
@@ -415,7 +832,30 @@ extern "C" int attention_block_launch(const void* x, const void* w_qkv, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_typed<float>(x, w_qkv, b_qkv, w_out, b_out, out, B, S, H, hd, scale, st);
-  if (dtype == 1)
-    return (int)launch_typed<bf16>(x, w_qkv, b_qkv, w_out, b_out, out, B, S, H, hd, scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {x, w_qkv, w_out, out};
+  if (cl::takes(S, H, hd, ptrs, 4))
+    return (int)cl::launch(x, w_qkv, b_qkv, w_out, b_out, out, B, S, H, hd, scale, st);
+  return (int)launch_typed<bf16>(x, w_qkv, b_qkv, w_out, b_out, out, B, S, H, hd, scale, st);
+}
+
+// Times each row's K and V are projected in a bfloat16 launch of this
+// shape (16-byte aligned tensors): 1 in the cluster body, one per query
+// tile of 64 in the tiled one.
+extern "C" int attention_block_kv_passes(int S, int H, int hd) {
+  return cl::takes(S, H, hd, nullptr, 0) ? 1 : (S + Cfg<bf16>::QT - 1) / Cfg<bf16>::QT;
+}
+
+// How many clusters of the bfloat16 body (H blocks each) the card holds at
+// once, or minus a cudaError_t.
+extern "C" int attention_block_max_clusters(int H) {
+  if (H < 1 || H > cl::kMaxHeads) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      cl::attention_block_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cl::kSmem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cl::config(132, H, nullptr, &attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, cl::attention_block_cluster_kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }

@@ -1,6 +1,7 @@
 // Warp-level bf16 tensor-core building blocks for the attention kernels
 // (attention_fwd.cuh = K1 and K6, attention_blockdiag.cu = K5,
-// attention_qkv_bwd.cu = K2): raw mma.sync.aligned.m16n8k16 products with
+// attention_qkv_bwd.cu = K2; K3 and K4 take its bf16 packing and quad
+// reductions): raw mma.sync.aligned.m16n8k16 products with
 // float32 accumulators, ldmatrix fragment loads from shared memory, and row
 // copies between a head's column block in device memory and a shared-memory
 // tile.

@@ -336,6 +336,12 @@ def block_kernel_library() -> BuiltLibrary:
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int
+    # how the bf16 launch of a shape projects K and V, and how many of its
+    # clusters the card holds at once (chip_smoke reports both)
+    built.lib.attention_block_kv_passes.argtypes = [ctypes.c_int] * 3  # S H hd
+    built.lib.attention_block_kv_passes.restype = ctypes.c_int
+    built.lib.attention_block_max_clusters.argtypes = [ctypes.c_int]  # H
+    built.lib.attention_block_max_clusters.restype = ctypes.c_int
     return built
 
 

@@ -49,14 +49,15 @@ def _port(x, wq, bq, wo, bo, dtype=torch.float32):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "B,S,sharp",
-    [pytest.param(2, 9, 1.0, id="2-9"), pytest.param(1, 25, 1.0, id="1-25"),
+    [pytest.param(2, 1, 1.0, id="2-1"), pytest.param(2, 33, 1.0, id="2-33"),
+     pytest.param(2, 9, 1.0, id="2-9"), pytest.param(1, 25, 1.0, id="1-25"),
      pytest.param(1, 125, SHARP, id="1-125-sharp"), pytest.param(1, 127, 1.0, id="1-127"),
      pytest.param(1, 128, 1.0, id="1-128"), pytest.param(1, 129, 1.0, id="1-129"),
      pytest.param(1, 129, SHARP, id="1-129-sharp")],
 )
 def test_block_matches_jax_kernel(dtype, B, S, sharp):
-    """Also on sharp scores and on both sides of the 128 keys up to which
-    the port's kernel keeps its scores."""
+    """Also on sharp scores, at S = 1 and 33, and on both sides of the 128
+    keys up to which the port's kernel runs one block a head."""
     x, wq, bq, wo, bo = _inputs(0, B, S, sharp)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     hp = head_pad_target(HD)

@@ -339,6 +339,20 @@ def _ffn_params(rs, D, Fd, device, dtype):
         ((3, 25), 116, 58, torch.float32, "gelu2"),
         ((3, 25), 116, 58, torch.bfloat16, "gelu2"),
         ((1, 7), 512, 200, torch.bfloat16, "gelu"),
+        # the bf16 wgmma body's edges: rows on both sides of its 64-row
+        # tile, F not a multiple of its 32-column chunk, D = 512 (256
+        # columns a warpgroup) and D <= 232 (the second warpgroup's columns
+        # empty); D = 116 and F = 58 take the exact body (no 16-byte rows)
+        ((63,), 464, 1856, torch.bfloat16, "relu"),
+        ((64,), 464, 1856, torch.bfloat16, "gelu2"),
+        ((65,), 464, 1856, torch.bfloat16, "gelu"),
+        ((127,), 464, 1856, torch.bfloat16, "relu"),
+        ((128,), 464, 1856, torch.bfloat16, "gelu"),
+        ((129,), 464, 1856, torch.bfloat16, "gelu2"),
+        ((130,), 464, 200, torch.bfloat16, "relu"),
+        ((129,), 512, 1856, torch.bfloat16, "gelu"),
+        ((75,), 120, 64, torch.bfloat16, "relu"),
+        ((65,), 464, 200, torch.float32, "relu"),
     ],
 )
 def test_ffn_kernel_matches_plain_version(cuda, lead, D, Fd, dtype, act):
@@ -385,6 +399,16 @@ def _block_params(rs, D, device, dtype, sharp=1.0):
         (2, 1, 2, 64, torch.float32, 1.0),
         (2, 33, 3, 40, torch.bfloat16, 1.0),
         (1, 70, 1, 5, torch.float32, 1.0),
+        # the bf16 cluster body's edges: one block a head, 1 to 8 heads
+        # (S = 1, 33), an odd head width (2-byte stores of o), and the
+        # shapes it leaves to the tiled body: 12 heads, d_model not a
+        # multiple of 8, S past 128
+        (2, 1, 8, 58, torch.bfloat16, 1.0),
+        (2, 33, 1, 64, torch.bfloat16, 1.0),
+        (2, 100, 8, 57, torch.bfloat16, 1.0),
+        (2, 64, 12, 40, torch.bfloat16, 1.0),
+        (2, 50, 2, 58, torch.bfloat16, 1.0),
+        (2, 128, 8, 58, torch.bfloat16, 1.0),
         # both sides of the 128 keys up to which the block keeps its
         # scores, and sharp scores (the rows of W_q and W_k scaled)
         (2, 127, 8, 58, torch.bfloat16, 1.0),
@@ -406,6 +430,9 @@ def test_block_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, sharp):
     want = attention.attention_block_reference(x, **p, num_heads=H)
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_fused_tol(want))
+    if dtype == torch.bfloat16:  # the normalised p rounded as the plain version rounds it
+        diff = (got.float() - want.float()).abs()
+        assert diff.mean() <= ATTN_BF16_MEAN_REL * want.float().abs().mean()
 
 
 def test_block_kernel_rejects_what_it_does_not_take(cuda):

@@ -59,6 +59,38 @@ def test_ffn_matches_jax_kernel(activation, dtype, lead):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
 
 
+# the flagship's widths (8 heads of 58, FFN 4x), for the row counts on both
+# sides of the Hopper kernel's 64-row tile
+FLAG_D, FLAG_F = 464, 1856
+
+
+@pytest.mark.parametrize("rows", [63, 65, 129])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_matches_jax_kernel_at_flagship_width(dtype, rows):
+    """float32 within JAX's own tolerance; bfloat16 within 2**-7 of the
+    largest output (|out| < 4 here): two rounding steps of it, from the
+    hidden and the output rounded after float32 sums taken in another
+    order, as chip_smoke holds the kernel to this plain version."""
+    rs = np.random.RandomState(rows)
+    x = (rs.randn(rows, FLAG_D) * 0.5).astype(np.float32)
+    p = {
+        "ln_scale": (1 + 0.1 * rs.randn(FLAG_D)).astype(np.float32),
+        "ln_bias": (0.1 * rs.randn(FLAG_D)).astype(np.float32),
+        "w1": (rs.randn(FLAG_D, FLAG_F) / np.sqrt(FLAG_D)).astype(np.float32),
+        "b1": (0.1 * rs.randn(FLAG_F)).astype(np.float32),
+        "w2": (rs.randn(FLAG_F, FLAG_D) / np.sqrt(FLAG_F)).astype(np.float32),
+        "b2": (0.1 * rs.randn(FLAG_D)).astype(np.float32),
+    }
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = jax_ffn(jnp.asarray(x, jdt), *(jnp.asarray(p[k]) for k in p),
+                   activation="relu", interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = tffn.fused_ln_ffn_residual(torch.as_tensor(x).to(getattr(torch, dtype)),
+                                     **_port_params(p), activation="relu")
+    tol = F32_TOL if dtype == "float32" else 2 ** -7 * max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
 def test_plain_version_matches_float64_formula():
     """The plain version in float32 against the same formula in float64."""
     x, p = _inputs(1, (3, 25))
