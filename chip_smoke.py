@@ -6,7 +6,9 @@ Drives the port's serving and training paths (``layoutdm_tpu_torch``), its
 four denoiser paths (default: K1; fused: K4 + K3; v2: K5; smajor: K6),
 relation-guided requests and the batch sampling CLI at the flagship
 LayoutDM width (Rico25: vocab 155, 125 tokens, d_model 464, 8 heads of 58,
-FFN 1856, 4 layers; random weights from a seed) and checks them:
+FFN 1856, 4 layers; random weights from a seed), then the evaluation path
+on what it sampled (FIDNetV3 at its full width, d_model 256, trained here:
+no extractor weights are in the repo), and checks them:
 
 1. device       card name, power limit, nvcc version, the six kernels
                 built in parallel, their build times and ptxas reports;
@@ -43,9 +45,15 @@ FFN 1856, 4 layers; random weights from a seed) and checks them:
                 (b) bfloat16 train steps at B=1024: samples/s, peak memory,
                 K1/K2 launches = layers x steps, and the same steps with the
                 plain attention; (c) 20 steps on one batch lower its loss;
+5a. fidnet_train the FIDNet trainer (`eval.fidnet_train`): FIDNetV3 on the
+                synthetic dataset at S = 25, batch 64, 500 steps; the
+                validation loss falls, the checkpoint exists, steps/s;
 6. train_cli    the trainer (`train.loop.train`) on the synthetic dataset
                 at flagship width into a job directory, which the service
-                then loads and answers a request from;
+                then loads and answers a request from; its FID probe on
+                the fidnet_train extractor writes a finite `fid_val` every
+                epoch of 10 (seconds per probe), the last from layouts
+                that hold elements;
 7. serve        the HTTP service answering unconditional / c / cwh / partial /
                 refinement requests, seed determinism, request coalescing,
                 the kernel's launch count over the service's runs, and
@@ -59,7 +67,18 @@ FFN 1856, 4 layers; random weights from a seed) and checks them:
 10. sample_cli  `python -m layoutdm_tpu_torch.sample_cli` (in process) on
                 the train_cli job on the v2 path, all six tasks: pickles
                 with the JAX CLI's keys, a violation rate for relation, K5
-                launched layers x chain steps.
+                launched layers x chain steps;
+11. fidnet      the extractor's features of 512 layouts on the card
+                against the CPU, and its time at B = 512 and 4096;
+12. eval_cli    `python -m layoutdm_tpu_torch.eval_cli` (in process) over
+                the six pickles and with `--compute_real`, then over six
+                pickles of 4,096 layouts against 4,096-layout splits (not
+                model samples: the scorer at a size its users score):
+                finite scores (the Wasserstein pair of a pickle with no
+                element is NaN, as in the JAX package), seconds split
+                between feature extraction, each metric and the rest;
+13. render_cli  `python -m layoutdm_tpu_torch.render_cli` on the task-c
+                pickle: a non-blank grid and one CSV row per layout.
 
 Each phase prints one JSON line and its seconds; then a ``{"kernels": [...]}``
 line (each kernel's time beside its bound, and the share of the bound it
@@ -230,6 +249,7 @@ def flagship_config(dtype: str):
 
 
 def phase_device() -> dict:
+    from layoutdm_tpu_torch import native
     from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
     from layoutdm_tpu_torch.ops.cuda_build import find_nvcc
 
@@ -247,9 +267,11 @@ def phase_device() -> dict:
             "attention_block": attention.block_kernel_library,
             "attention_blockdiag": attention_blockdiag.kernel_library,
             "attention_qkv_smajor": attention.smajor_kernel_library}
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
         futures = {name: pool.submit(build) for name, build in libs.items()}
+        engine = pool.submit(native.library)  # g++: the metrics' host engine
         built = {name: f.result() for name, f in futures.items()}
+        engine = engine.result()
     for name, lib in built.items():
         # ptxas registers / shared memory / spills
         print(f"== {name}\n{lib.log}", file=sys.stderr)
@@ -262,6 +284,8 @@ def phase_device() -> dict:
         "torch_cuda": torch.version.cuda,
         "nvcc": nvcc,
         "kernel_build_s": {name: lib.build_seconds for name, lib in built.items()},
+        "native_build_s": engine.build_seconds,
+        "native_flags": list(native.GXX_FLAGS),
     }
     emit(out)
     return out
@@ -1014,27 +1038,66 @@ def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
     return out
 
 
-def phase_train_cli(work_dir: str, device="cuda", overrides=()) -> dict:
-    """The trainer on the synthetic dataset into ``work_dir``/job, which
-    the service then loads and answers a request from (and the sample_cli
-    phase samples from)."""
+def phase_train_cli(work_dir: str, device="cuda", epochs=10, overrides=()) -> dict:
+    """The trainer on the synthetic dataset (2,048 layouts, 32 steps an
+    epoch) into ``work_dir``/job, which the service then loads and answers
+    a request from (and the sample_cli phase samples from), with its FID
+    probe on the extractor the fidnet_train phase wrote under
+    ``work_dir``/fid_weights: a finite ``fid_val`` every epoch, the last
+    from layouts that hold at least one element each on average, and not
+    all of them equal."""
     from layoutdm_tpu_torch.configs import build_train_config
     from layoutdm_tpu_torch.serve_cli import LayoutService
-    from layoutdm_tpu_torch.train.loop import train
+    from layoutdm_tpu_torch.train import loop
 
     cfg = build_train_config("layoutdm", "synthetic", [
-        "debug=true", "training.sample_plot_epoch_interval=0",
-        f"job_dir={work_dir}/job", f"dataset.dir={work_dir}/datasets", *overrides,
+        f"training.epochs={epochs}", "training.sample_plot_epoch_interval=0",
+        f"job_dir={work_dir}/job", f"dataset.dir={work_dir}/datasets",
+        f"fid_weight_dir={work_dir}/fid_weights", *overrides,
     ])
+    probe_s, probe_elements = [], []
+    probe = loop._compute_training_fid
+
+    def timed_probe(cfg, model, *args, **kw):
+        """The probe, timed, with the mean elements per layout it sampled."""
+        def counted_sample(*a, **k):
+            out = type(model).sample(model, *a, **k)
+            probe_elements.append(out["mask"].sum(1).float().mean().item())
+            return out
+
+        model.sample = counted_sample
+        t = time.perf_counter()
+        try:
+            return probe(cfg, model, *args, **kw)
+        finally:
+            probe_s.append(time.perf_counter() - t)
+            del model.sample
+
     reset_launches()
-    t0 = time.perf_counter()
-    result = train(cfg, device=device)
-    sec = time.perf_counter() - t0
+    loop._compute_training_fid = timed_probe
+    try:
+        t0 = time.perf_counter()
+        result = loop.train(cfg, device=device)
+        sec = time.perf_counter() - t0
+    finally:
+        loop._compute_training_fid = probe
     launches_bwd = launch_counts()["K2"]
     if not (np.isfinite(result["best_val_loss"]) and launches_bwd > 0):
         raise AssertionError(f"trainer result {result}, K2 launches {launches_bwd}")
     with open(os.path.join(cfg.job_dir, "metrics.jsonl")) as f:
-        epochs = [json.loads(line) for line in f]
+        rows = [json.loads(line) for line in f]
+    epoch_rows = [r for r in rows if "val_loss" in r]
+    # the probe logs and swallows its own failures (as the JAX trainer's
+    # does), so its rows are the proof that it ran
+    fids = [r["fid_val"] for r in rows if "fid_val" in r]
+    if not (len(fids) == len(epoch_rows) and np.isfinite(fids).all()):
+        raise AssertionError(f"FID probe wrote {fids} over {len(epoch_rows)} epochs")
+    # a probe of empty layouts scores one repeated feature, whatever it
+    # does: the first epochs' samples may be empty, the last must not be
+    if not (len(probe_elements) == len(fids) and probe_elements[-1] >= 1
+            and len(set(fids)) > 1):
+        raise AssertionError(f"FID probe: {probe_elements} elements per layout, "
+                             f"FIDs {fids}")
     service = LayoutService(cfg.job_dir, max_batch_size=8, warm_tasks=(),
                             device=device)
     try:
@@ -1046,9 +1109,14 @@ def phase_train_cli(work_dir: str, device="cuda", overrides=()) -> dict:
         "phase": "train_cli",
         "d_model": cfg.backbone.shrunk(29 / 32).d_model,  # as LayoutDM builds it
         "quantization": cfg.data.bbox_quantization,
-        "epochs": len(epochs),
-        "val_loss": [e["val_loss"] for e in epochs],
+        "epochs": len(epoch_rows),
+        "val_loss": [e["val_loss"] for e in epoch_rows],
         "train_seconds": sec,
+        "fid_val": fids,
+        "fid_probe_seconds": probe_s,
+        "fid_probe_elements_per_layout": probe_elements,
+        "fid_note": "256 samples against the 256 val layouts in 256-d features: "
+                    "rank-deficient covariances, FID finite but ill-conditioned",
         "launches_bwd": launches_bwd,
         "served_layouts": len(resp["layouts"]),
     }
@@ -1117,6 +1185,242 @@ def phase_sample_cli(work_dir: str, device="cuda", num_samples=16, num_timesteps
            "ms_per_sample": results, "violation_rate": rates["relation"],
            "num_samples": num_samples, "num_timesteps": num_timesteps,
            "launches": launches, "seconds": sec}
+    emit(out)
+    return out
+
+
+FID_S = 25  # the synthetic dataset's max_seq_length in the train_cli job
+
+
+def phase_fidnet_train(work_dir: str, device="cuda", iterations=500, batch=64,
+                       log_every=100) -> dict:
+    """The FIDNet trainer (`eval.fidnet_train.train_fidnet`): FIDNetV3 at
+    full width (d_model 256, 4 heads, 4 + 4 layers) on the synthetic
+    dataset at S = 25, into ``work_dir``/fid_weights, which the train_cli
+    probe and the eval_cli phase score with.  The validation loss falls and
+    the checkpoint exists; steps/s over the whole run (validation sweeps
+    every ``log_every`` steps included)."""
+    from layoutdm_tpu_torch.eval.fidnet_train import train_fidnet
+
+    t0 = time.perf_counter()
+    model, history = train_fidnet(
+        "synthetic", f"{work_dir}/datasets", f"{work_dir}/fid_weights", max_seq_length=FID_S,
+        batch_size=batch, iterations=iterations, log_every=log_every, device=device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ckpt = os.path.join(work_dir, "fid_weights", f"synthetic-max{FID_S}", "model_best.pth.tar")
+    losses = [v for _, v in history]
+    if not (os.path.exists(ckpt) and len(losses) >= 2 and losses[-1] < losses[0]):
+        raise AssertionError(f"FIDNet training: val losses {losses}, checkpoint "
+                             f"{os.path.exists(ckpt)}")
+    out = {"phase": "fidnet_train", "d_model": model.d_model, "max_bbox": FID_S,
+           "batch": batch, "iterations": iterations, "val_loss": losses,
+           "seconds": sec, "steps_per_s": iterations / sec}
+    emit(out)
+    return out
+
+
+def phase_fidnet(work_dir: str, device="cuda", batches=(512, 4096)) -> dict:
+    """FIDNetV3 features (the fidnet_train checkpoint) of the same 512
+    synthetic layouts on the card and on the CPU, within F32_TOL, then the
+    extraction timed at each batch size on inputs already on the card:
+    CUDA events, layouts/s, peak memory allocated (weights included)."""
+    from layoutdm_tpu_torch.data.datasets import load_dataset
+    from layoutdm_tpu_torch.eval.fidnet import load_fidnet_v3, make_feature_extractor
+
+    data = load_dataset("synthetic", f"{work_dir}/datasets", "train", FID_S)
+    weights = f"{work_dir}/fid_weights"
+    n_labels = len(data.labels)
+    card = make_feature_extractor(load_fidnet_v3("synthetic", n_labels, weights, FID_S,
+                                                 device=device))
+    host = make_feature_extractor(load_fidnet_v3("synthetic", n_labels, weights, FID_S,
+                                                 device="cpu"))
+    got = card(data.bbox[:512], data.label[:512], data.mask[:512]).cpu()
+    want = host(data.bbox[:512], data.label[:512], data.mask[:512])
+    err = (got - want).abs().max().item()
+    if not (got.shape == (512, 256) and torch.isfinite(got).all() and err <= F32_TOL):
+        raise AssertionError(f"FIDNet features on the card: shape {tuple(got.shape)}, "
+                             f"max error {err} against the CPU")
+    times = {}
+    for B in batches:
+        reps = -(-B // len(data))
+        inputs = [torch.as_tensor(np.concatenate([a] * reps)[:B], device=device)
+                  for a in (data.bbox, data.label, data.mask)]
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: card(*inputs), iters=10, warmup=3)
+        times[f"b{B}"] = {"ms": ms, "layouts_per_s": B / ms * 1e3,
+                          "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    out = {"phase": "fidnet", "max_abs_err_vs_cpu": err, "tolerance": F32_TOL,
+           "times": times}
+    emit(out)
+    return out
+
+
+EVAL_N = 4096  # layouts a pickle at size: of the order of a Rico25 test split
+EVAL_DATASET = "synthetic_at_size"
+TIMED_METRICS = ("compute_alignment", "compute_overlap", "compute_average_iou",
+                 "compute_generative_model_scores", "compute_maximum_iou",
+                 "compute_docsim", "compute_wasserstein_distance")
+
+
+def timed_eval_cli(args) -> tuple:
+    """``eval_cli.main(args)`` with its output captured: its scores, and its
+    seconds split into feature extraction, each metric (each timed around
+    its own calls) and the rest (loading, the extractor's set-up, printing)."""
+    import contextlib
+    import io
+
+    from layoutdm_tpu_torch import eval_cli
+    from layoutdm_tpu_torch.eval import metrics
+
+    seconds = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return call
+
+    saved = [(eval_cli, "extract_in_batches", eval_cli.extract_in_batches)]
+    saved += [(metrics, name, getattr(metrics, name)) for name in TIMED_METRICS]
+    printed = io.StringIO()
+    try:
+        for module, name, fn in saved:
+            setattr(module, name, timed(name, fn))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            scores = eval_cli.main(args)
+        sec = time.perf_counter() - t0
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    extract = seconds.pop("extract_in_batches", 0.0)
+    metric_s = sum(seconds.values())
+    return scores, {"seconds": sec, "feature_seconds": extract,
+                    "metric_seconds": metric_s, "other_seconds": sec - extract - metric_s,
+                    "metric_seconds_by_call": seconds,
+                    "csv": printed.getvalue().splitlines()[:2]}
+
+
+def check_scores(what: str, scores: dict, empty=()) -> None:
+    """Every score finite, but the Wasserstein pair of the pickles (by
+    index) in ``empty``, which have no element: the JAX package leaves it
+    NaN there too."""
+    bad = {k: v for k, v in scores.items()
+           if not all(np.isfinite(x) or (k.startswith("wdist_") and i in empty)
+                      for i, x in enumerate(v))}
+    if "fid" not in scores or bad:
+        raise AssertionError(f"eval_cli {what}: non-finite {bad}, keys {sorted(scores)}")
+
+
+def write_sized_results(work_dir: str, n: int, seed=0) -> str:
+    """Six result pickles of ``n`` layouts each, scored against a dataset
+    registered here whose val and test splits hold ``n`` synthetic layouts
+    each.  The conditional tasks keep each test layout's labels and jitter
+    its boxes, so that the max-IoU groups and DocSim pairs are those of a
+    conditional sampler's output; the unconditional pickle draws layouts of
+    its own.  They are not model samples: they give the scorer a result
+    directory of a size its users score.  Returns the directory."""
+    import pickle
+    import shutil
+
+    from layoutdm_tpu_torch.data.datasets import synthetic_layouts
+    from layoutdm_tpu_torch.eval_cli import pad_layout_list
+    from layoutdm_tpu_torch.registry import DATASET_LABELS, register_dataset
+
+    register_dataset(EVAL_DATASET, DATASET_LABELS["rico5"], overwrite=True)
+    proc = os.path.join(work_dir, "datasets", f"{EVAL_DATASET}-max{FID_S}", "processed")
+    os.makedirs(proc, exist_ok=True)
+    splits = {}
+    for i, split in enumerate(("val", "test")):
+        splits[split] = synthetic_layouts(n, FID_S, seed=seed + 100 + i)
+        bbox, label, mask = pad_layout_list(splits[split], FID_S)
+        np.savez(os.path.join(proc, f"{split}.npz"), bbox=bbox, label=label, mask=mask)
+    weights = os.path.join(work_dir, "fid_weights")
+    shutil.copytree(os.path.join(weights, f"synthetic-max{FID_S}"),
+                    os.path.join(weights, f"{EVAL_DATASET}-max{FID_S}"), dirs_exist_ok=True)
+    with open(os.path.join(work_dir, "results", "c_test_seed_0.pkl"), "rb") as f:
+        train_cfg = pickle.load(f)["train_cfg"]
+    train_cfg["dataset"].update(name=EVAL_DATASET, dir=os.path.join(work_dir, "datasets"))
+    out_dir = os.path.join(work_dir, "results_at_size")
+    os.makedirs(out_dir, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    for task in SAMPLE_TASKS:
+        if task == "unconditional":
+            layouts = synthetic_layouts(n, FID_S, seed=seed + 200)
+        else:
+            layouts = [(np.clip(b + rs.normal(0, 0.02, b.shape), 0, 1).astype(np.float32), l)
+                       for b, l in splits["test"]]
+        with open(os.path.join(out_dir, f"{task}_test_seed_0.pkl"), "wb") as f:
+            pickle.dump({"results": layouts, "train_cfg": train_cfg,
+                         "test_cfg": {"cond": task}}, f)
+    return out_dir
+
+
+def phase_eval_cli(work_dir: str, device="cuda", n=EVAL_N) -> dict:
+    """``eval_cli`` (its ``main``, as ``python -m`` runs it) with the
+    fidnet_train extractor: over the six sample_cli pickles (16 layouts
+    each, against the 256 of the synthetic test split), with
+    ``--compute_real``, and over six pickles of ``n`` layouts against
+    splits of ``n`` (``write_sized_results``) with ``--compute_real``
+    there too.  Every score finite, but the Wasserstein pair of a pickle
+    with no element (NaN in the JAX package too).  Seconds split between
+    feature extraction (numpy to the card and back), each metric, and the
+    rest."""
+    import glob
+    import pickle
+
+    results = os.path.join(work_dir, "results")
+    elements = {}
+    for path in sorted(glob.glob(os.path.join(results, "*.pkl"))):
+        with open(path, "rb") as f:
+            layouts = pickle.load(f)["results"]
+        elements[os.path.basename(path)] = float(np.mean([len(l) for _, l in layouts]))
+    empty = {i for i, e in enumerate(elements.values()) if e == 0}
+    sized = write_sized_results(work_dir, n)
+    common = ["--fid_weight_dir", f"{work_dir}/fid_weights", "--data_dir",
+              f"{work_dir}/datasets", "--max_seq_length", str(FID_S), "--device", str(device)]
+    runs = {}
+    for name, args, allowed in (
+        ("results", [results, "--dataset", "synthetic"], empty),
+        ("compute_real", [results, "--dataset", "synthetic", "--compute_real"], ()),
+        ("at_size", [sized, "--dataset", EVAL_DATASET], ()),
+        ("at_size_compute_real", [sized, "--dataset", EVAL_DATASET, "--compute_real"], ()),
+    ):
+        scores, runs[name] = timed_eval_cli(args + common)
+        check_scores(name, scores, allowed)
+        runs[name]["fid"] = scores["fid"]
+    out = {"phase": "eval_cli", "pickles": len(runs["results"]["fid"]), "runs": runs,
+           "elements_per_layout": elements, "layouts_at_size": n,
+           "fid_note": "results: 16 layouts a pickle against 256-d features, FID finite "
+                       f"but ill-conditioned; at_size: {n} layouts, well-conditioned"}
+    emit(out)
+    return out
+
+
+def phase_render_cli(work_dir: str, num_samples=16) -> dict:
+    """``render_cli`` on the task-c pickle: a non-blank image grid and one
+    CSV row per layout."""
+    from PIL import Image
+
+    from layoutdm_tpu_torch import render_cli
+
+    pkl = os.path.join(work_dir, "results", "c_test_seed_0.pkl")
+    out_dir = os.path.join(work_dir, "render")
+    t0 = time.perf_counter()
+    render_cli.main([pkl, "--out_dir", out_dir, "--num_samples", str(num_samples)])
+    sec = time.perf_counter() - t0
+    with Image.open(os.path.join(out_dir, "generated.png")) as img:
+        pixels = np.asarray(img)
+    with open(os.path.join(out_dir, "scores.csv")) as f:
+        rows = f.read().splitlines()
+    if not (pixels.std() > 0 and len(rows) == num_samples + 1):
+        raise AssertionError(f"render_cli: image std {pixels.std()}, {len(rows)} CSV lines")
+    out = {"phase": "render_cli", "files": sorted(os.listdir(out_dir)),
+           "image": list(pixels.shape), "csv_rows": len(rows) - 1, "seconds": sec}
     emit(out)
     return out
 
@@ -1341,6 +1645,7 @@ def main() -> int:
     tr = run(phase_train, smi=smi)
     serves = {}
     with tempfile.TemporaryDirectory() as work:
+        run(phase_fidnet_train, work_dir=work)
         run(phase_train_cli, work_dir=work)
         for path in ("default", "fused", "v2", "smajor"):
             guided = path in ("v2", "smajor")
@@ -1348,6 +1653,9 @@ def main() -> int:
                                n_latency=5 if guided else 10)
             run(phase_throughput, smi=smi, path=path)
         run(phase_sample_cli, work_dir=work)
+        run(phase_fidnet, work_dir=work)
+        run(phase_eval_cli, work_dir=work)
+        run(phase_render_cli, work_dir=work)
 
     # launches on each kernel's main path
     launches = {

@@ -18,6 +18,13 @@ its backward (``attention_qkv_bwd.cu``); and, on the fused denoiser path
 (``LAYOUTDM_TPU_FUSED_BLOCK=1``, ``LAYOUTDM_TPU_FUSED_FFN=1``), the whole
 attention block (``attention_block.cu``) and the LayerNorm-FFN-residual
 (``ffn.cu``).  Entry points run on CUDA unless given ``device="cpu"``.
+
+Beside the model it carries the user path around it: the ingest CLI
+(``data/ingest.py``), the metric suite (``eval/metrics.py``, on a C++ host
+engine in ``native/``), the FIDNet feature extractor and its trainer
+(``eval/fidnet.py``, ``eval/fidnet_train.py``; plain PyTorch ops on the
+card, as the JAX package runs them in plain XLA), ``eval_cli`` and
+``render_cli``.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,9 @@ Each library is compiled for Hopper (``sm_90a``) into a shared object with a
 plain C interface, under ``layoutdm_tpu_torch/_build/`` (git-ignored), named
 by a hash of its sources, the shared headers and the flags: a changed source
 builds anew, an unchanged one loads the cached file.  Nothing is downloaded and no PyTorch
-header is compiled, so a build takes seconds.
+header is compiled, so a build takes seconds.  ``compile_cached`` is the
+build step itself; the host-side metric engine (``native/``, g++) uses it
+too.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -62,15 +64,25 @@ def find_nvcc() -> str:
 def load_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
     """Compile ``csrc/<sources>`` into one shared library (cached by content)
     and load it.  Raises RuntimeError with nvcc's output if the build fails."""
+    # the shared headers (``csrc/*.cuh``) are part of every source
+    return compile_cached(name, find_nvcc, NVCC_FLAGS, [CSRC_DIR / s for s in sources],
+                          sorted(CSRC_DIR.glob("*.cuh")))
+
+
+def compile_cached(name: str, compiler: Callable[[], str], flags: Sequence[str],
+                   sources: Sequence[Path], headers: Sequence[Path] = ()) -> BuiltLibrary:
+    """Compile ``sources`` with ``compiler()`` and ``flags`` into one shared
+    library under ``_build/``, named by a hash of the flags, the sources and
+    the ``headers`` they include, and load it: an unchanged library loads
+    the cached file (and the compiler is not looked for).  Raises
+    RuntimeError with the compiler's output if the build fails."""
     with _LOCKS_GUARD:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name in _LOADED:
             return _LOADED[name]
-        paths = [CSRC_DIR / s for s in sources]
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        # the shared headers (``csrc/*.cuh``) are part of every source
-        for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
+        digest = hashlib.sha256(" ".join(flags).encode())
+        for p in [*sources, *headers]:
             digest.update(p.name.encode())
             digest.update(p.read_bytes())
         so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -79,7 +91,7 @@ def load_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)]
+            cmd = [compiler(), *flags, "-o", tmp, *map(str, sources)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0
@@ -87,7 +99,7 @@ def load_library(name: str, sources: Sequence[str]) -> BuiltLibrary:
             if proc.returncode != 0:
                 os.unlink(tmp)
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+                    f"build failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
                 )
             os.replace(tmp, so)
         built = BuiltLibrary(ctypes.CDLL(str(so)), so, seconds, log)

@@ -6,7 +6,9 @@ reference `main.py:57-205`).
 Per epoch: shuffled host batches -> tokenize -> one train step per batch on
 the device; the validation loss; the host-side LR schedule; best/last
 checkpoints with the full train state; ``metrics.jsonl`` and TensorBoard
-events under ``<job_dir>/logs``.  ``resume.json`` is written last and
+events under ``<job_dir>/logs``; and, every ``max(epochs // 10, 1)``
+epochs when ``{fid_weight_dir}/{name}-max{S}`` exists, an FID of 256
+samples against the val split (``fid_val``, ``val/fid``).  ``resume.json`` is written last and
 atomically, so a job killed anywhere resumes from a consistent state.
 ``seed=0,1,2`` trains one job per seed into ``<job_dir>/seed_<i>``.
 
@@ -140,14 +142,9 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
             set_learning_rate(state, meta["scheduler"]["lr"])
         logger.info("resumed from epoch %d (best_val %.4f)", start_epoch, best_val)
 
-    if os.path.isdir(os.path.join(
-        cfg.fid_weight_dir, f"{cfg.dataset.name}-max{cfg.dataset.max_seq_length}"
-    )):
-        logger.info("in-loop FID probe skipped: the FID extractor "
-                    "(eval/fidnet.py) is not ported yet")
-
     B = cfg.data.batch_size
     epochs = 2 if cfg.debug else cfg.training.epochs
+    fid_cache = {}  # FID extractor + val features, loaded once per run
     totals = {}
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
@@ -210,12 +207,54 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
             except Exception as e:  # rendering must never kill training
                 logger.warning("sample render failed: %s", e)
 
+        # periodic FID against the val split (`main.py:153-193`), only when
+        # extractor weights are available
+        fid_every = max(epochs // 10, 1)
+        if (epoch + 1) % fid_every == 0 and os.path.isdir(os.path.join(
+            cfg.fid_weight_dir, f"{cfg.dataset.name}-max{cfg.dataset.max_seq_length}"
+        )):
+            try:
+                # a stream of its own, so that probing leaves training's as it was
+                probe_gen = torch.Generator(device=device).manual_seed(cfg.seed + epoch)
+                fid = _compute_training_fid(cfg, model, probe_gen, val_data, cache=fid_cache)
+                with open(log_path, "a") as f:
+                    f.write(json.dumps({"epoch": epoch, "fid_val": fid}) + "\n")
+                logger.info("epoch %d FID(val) %.3f", epoch, fid)
+                tb.scalar("val/fid", fid, epoch)
+            except Exception as e:  # as the JAX probe: a probe never kills training
+                logger.warning("FID eval failed: %s", e, exc_info=True)
+
     tb.close()
     ckpt.save_params(model.net.state_dict(), job_dir, "final")
     result = {"best_val_loss": best_val, "final_train": totals}
     with open(os.path.join(job_dir, "result.json"), "w") as f:
         json.dump(result, f)
     return result
+
+
+def _compute_training_fid(cfg, model, gen, val_data, n_samples=256, cache=None) -> float:
+    """In-training FID probe (`main.py:153-193`): features of ``n_samples``
+    layouts sampled with ``gen`` against those of the val split.  With a
+    ``cache`` dict the extractor and the val features are loaded once per
+    run and reused by every later probe."""
+    from layoutdm_tpu_torch.eval.fidnet import load_fidnet_v3, make_feature_extractor
+    from layoutdm_tpu_torch.eval.metrics import compute_generative_model_scores
+    from layoutdm_tpu_torch.eval_cli import extract_in_batches
+
+    if cache is None:
+        cache = {}
+    if "extract" not in cache:
+        cache["extract"] = make_feature_extractor(load_fidnet_v3(
+            cfg.dataset.name, cfg.dataset.num_categories, cfg.fid_weight_dir,
+            cfg.dataset.max_seq_length, device=model.device,
+        ))
+    extract = cache["extract"]
+    if "feats_real" not in cache:
+        cache["feats_real"] = extract_in_batches(
+            extract, val_data.bbox, val_data.label, val_data.mask)
+    layouts = {k: v.cpu().numpy() for k, v in model.sample(gen, n_samples).items()}
+    feats_fake = extract_in_batches(extract, layouts["bbox"], layouts["label"], layouts["mask"])
+    return float(compute_generative_model_scores(cache["feats_real"], feats_fake)["fid"])
 
 
 def main(argv=None):

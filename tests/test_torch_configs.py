@@ -4,6 +4,7 @@ its own; and the entry points that run on CUDA unless asked for the CPU."""
 
 import dataclasses
 import json
+import pickle
 
 import jax
 import numpy as np
@@ -15,6 +16,9 @@ from layoutdm_tpu.registry import DATASET_LABELS as JAX_LABELS
 from layoutdm_tpu.train import checkpoint as jax_ckpt
 from layoutdm_tpu_torch import configs as tconfigs
 from layoutdm_tpu_torch import registry as tregistry
+from layoutdm_tpu_torch.eval.fidnet import load_fidnet_v3
+from layoutdm_tpu_torch.eval.fidnet_train import train_fidnet
+from layoutdm_tpu_torch.eval_cli import evaluate_results
 from layoutdm_tpu_torch.factory import build_model, build_tokenizer
 from layoutdm_tpu_torch.models.layoutdm import LayoutDM
 from layoutdm_tpu_torch.serve_cli import LayoutService
@@ -74,7 +78,8 @@ def test_registry_is_the_ports_own(monkeypatch):
 
 
 def test_entry_points_default_to_cuda(tmp_path):
-    """build_model, LayoutDM and LayoutService run on CUDA unless given
+    """build_model, LayoutDM, LayoutService, the FIDNet loader, the FIDNet
+    trainer and eval_cli's evaluate_results run on CUDA unless given
     device="cpu": on a host without CUDA they raise, and with
     device="cpu" they run."""
     if torch.cuda.is_available():
@@ -99,6 +104,26 @@ def test_entry_points_default_to_cuda(tmp_path):
         assert len(out["layouts"]) == 2 and svc.info()["device"] == "cpu"
     finally:
         svc.close()
+
+    fid_dir = str(tmp_path / "fid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_fidnet("synthetic", "", fid_dir, max_seq_length=4, iterations=2, batch_size=8)
+    model, _ = train_fidnet("synthetic", "", fid_dir, max_seq_length=4, iterations=2,
+                            batch_size=8, device="cpu")
+    assert next(model.parameters()).is_cpu
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_fidnet_v3("synthetic", 5, fid_dir, 4)
+    assert next(load_fidnet_v3("synthetic", 5, fid_dir, 4, device="cpu").parameters()).is_cpu
+
+    result = tmp_path / "unconditional_seed_0.pkl"
+    rs = np.random.RandomState(0)
+    with open(result, "wb") as f:
+        pickle.dump({"results": [(rs.rand(2, 4).astype(np.float32), np.array([0, 1]))] * 4,
+                     "train_cfg": tconfigs.to_dict(cfg), "test_cfg": {"cond": "unconditional"}},
+                    f)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_results([str(result)])
+    assert "alignment-LayoutGAN++" in evaluate_results([str(result)], device="cpu")
 
 
 def test_jax_job_weights_serve_on_the_fused_path(tmp_path):

@@ -1,8 +1,8 @@
 """The port on a CUDA card: the hand-written kernels (K1 attention forward,
 K2 its backward, K3 LayerNorm-FFN-residual, K4 attention block, K5
 padded-head attention, K6 sequence-major attention) against their plain
-versions, the denoiser (every path) and the per-row noise on the card
-against the CPU.  Every test here is marked ``cuda`` and skips without a card.
+versions, the denoiser (every path), the per-row noise and the FIDNet
+feature extractor on the card against the CPU.  Every test here is marked ``cuda`` and skips without a card.
 
 This file imports no jax and nothing of the JAX package (as
 the port does), so it also runs on a GPU host without jax:
@@ -573,3 +573,32 @@ def test_attention_path_denoiser_on_card_matches_cpu(cuda, path):
     want_launches = (0, 2, 0) if path == "attn_v2" else (0, 0, 2)
     assert tuple(a - b for a, b in zip(counters(), before)) == want_launches
     torch.testing.assert_close(got, want, rtol=0, atol=F32_TOL)
+
+
+def test_fidnet_on_card_matches_cpu(cuda):
+    """FIDNetV3 at full width (d_model 256, 4 heads, 4 + 4 layers, max_bbox
+    25) on padded rows, one with no element: features float32 without
+    TF32, and the training heads, on the card against the CPU."""
+    from layoutdm_tpu_torch.eval.fidnet import FIDNetV3, make_feature_extractor
+
+    torch.manual_seed(0)
+    cpu = FIDNetV3(7, max_bbox=25, device="cpu")
+    gpu = FIDNetV3(7, max_bbox=25, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(0)
+    bbox = rs.rand(64, 25, 4).astype(np.float32)
+    label = rs.randint(0, 7, (64, 25))
+    n = rs.randint(1, 26, (64, 1))
+    n[-1] = 0
+    mask = np.arange(25)[None] < n
+    got = make_feature_extractor(gpu)(bbox, label, mask)
+    assert got.is_cuda and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), make_feature_extractor(cpu)(bbox, label, mask),
+                               rtol=0, atol=F32_TOL)
+    args = (torch.as_tensor(bbox), torch.as_tensor(label), torch.as_tensor(~mask))
+    with torch.no_grad():
+        want = cpu(*args)
+        heads = gpu(*(a.to(cuda) for a in args))
+    for g, w in zip(heads, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=F32_TOL)

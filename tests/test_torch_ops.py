@@ -155,9 +155,9 @@ def test_sample_mask_matches_jax_with_injected_scores():
                                   "compare_kernels"])
 def test_port_imports_no_jax(what):
     """Every module of the port, and each of the port's scripts (imported,
-    not run), imports in a fresh interpreter without loading jax, flax or
-    optax (the GPU host has none) or any module of the JAX package: the
-    port keeps its own copies."""
+    not run), imports in a fresh interpreter without loading jax, flax,
+    optax or msgpack (the GPU host has none) or any module of the JAX
+    package: the port keeps its own copies."""
     if what == "package":
         pkg = REPO / "layoutdm_tpu_torch"
         mods = sorted(
@@ -171,7 +171,7 @@ def test_port_imports_no_jax(what):
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'layoutdm_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'layoutdm_tpu')]\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

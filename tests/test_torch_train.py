@@ -402,3 +402,71 @@ def test_cpu_trainer_cli_writes_a_job_the_service_serves(tmp_path):
     assert len(out["layouts"]) == 2
     for lay in out["layouts"]:
         assert len(lay["label"]) == len(lay["bbox"]) <= 5
+
+
+def _fidnet_dir(root, S, seed=0):
+    """A FIDNetV3 ``.pth.tar`` for synthetic at max S under ``root``."""
+    from layoutdm_tpu_torch.eval.fidnet import FIDNetV3
+
+    torch.manual_seed(seed)
+    model = FIDNetV3(5, max_bbox=S, device="cpu")
+    os.makedirs(root / f"synthetic-max{S}")
+    torch.save({"state_dict": model.state_dict()},
+               root / f"synthetic-max{S}" / "model_best.pth.tar")
+    return str(root)
+
+
+def test_fid_probe_writes_a_finite_fid_val(tmp_path):
+    """With extractor weights for the dataset, every epoch (2 epochs:
+    max(2 // 10, 1)) writes ``fid_val`` to metrics.jsonl and ``val/fid`` to
+    TensorBoard; the probe draws from a stream of its own, so the trained
+    weights are those of a run without it."""
+    def cfg(job, fid_dir):
+        return tconfigs.build_train_config("layoutdm", "synthetic", TINY + [
+            "debug=true", "data.batch_size=16", f"job_dir={tmp_path}/{job}",
+            f"dataset.dir={tmp_path}/datasets", f"fid_weight_dir={fid_dir}"])
+
+    fid_dir = _fidnet_dir(tmp_path / "fid", 5)
+    train(cfg("probed", fid_dir), device="cpu")
+    rows = [json.loads(x) for x in open(tmp_path / "probed" / "metrics.jsonl")]
+    fids = [r for r in rows if "fid_val" in r]
+    assert [r["epoch"] for r in fids] == [0, 1]
+    assert all(np.isfinite(r["fid_val"]) for r in fids)
+    events = b"".join(p.read_bytes() for p in (tmp_path / "probed" / "logs").iterdir())
+    assert b"val/fid" in events
+    train(cfg("plain", str(tmp_path / "no_fid")), device="cpu")
+    a = torch.load(tmp_path / "probed" / "final_params.pt", weights_only=True)
+    b = torch.load(tmp_path / "plain" / "final_params.pt", weights_only=True)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+
+
+def test_training_fid_on_injected_layouts_matches_jax(tmp_path):
+    """``_compute_training_fid`` of both packages on the same 512 sampled
+    layouts (injected in place of each model's sampler) against the same
+    512 val layouts, through the same FIDNet file: n > 256 feature
+    dimensions, so FID agrees within 1e-3 relative.  The extractor and the
+    val features are cached across probes."""
+    from types import SimpleNamespace
+
+    from layoutdm_tpu.train.loop import _compute_training_fid as jax_fid
+    from layoutdm_tpu_torch.train.loop import _compute_training_fid as port_fid
+
+    S, n = 5, 512
+    fid_dir = _fidnet_dir(tmp_path, S, seed=3)
+    rs = np.random.RandomState(0)
+    val = SimpleNamespace(**layout_batch(rs, n, max_elements=S, num_categories=5))
+    fake = layout_batch(rs, n, max_elements=S, num_categories=5)
+    overrides = [f"dataset.max_seq_length={S}", f"fid_weight_dir={fid_dir}"]
+    jcfg = build_train_config("layoutdm", "synthetic", overrides)
+    tcfg = tconfigs.build_train_config("layoutdm", "synthetic", overrides)
+    jmodel = SimpleNamespace(sample=lambda params, rng, k: {x: fake[x][:k] for x in fake})
+    tmodel = SimpleNamespace(device=torch.device("cpu"), sample=lambda gen, k: {
+        x: torch.as_tensor(fake[x][:k]) for x in fake})
+    want = jax_fid(jcfg, jmodel, SimpleNamespace(params=None), val, None, n_samples=n)
+    cache = {}
+    got = port_fid(tcfg, tmodel, None, val, n_samples=n, cache=cache)
+    assert np.isfinite(got) and abs(got - want) <= 1e-3 * abs(want), (got, want)
+    feats_real = cache["feats_real"]
+    assert port_fid(tcfg, tmodel, None, val, n_samples=n, cache=cache) == got
+    assert cache["feats_real"] is feats_real and feats_real.shape == (n, 256)
