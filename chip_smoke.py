@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving and training paths (``layoutdm_tpu_torch``), its
-four denoiser paths (default: K1; fused: K4 + K3; v2: K5; smajor: K6),
+Drives the port's serving and training paths (``layoutdm_tpu_torch``), the
+training and sampling of its baseline zoo (MaskGIT, BLT, RUITE, the
+autoregressive LayoutTransformer, VQDiffusion), its four denoiser paths (default: K1; fused: K4 + K3; v2: K5; smajor: K6),
 relation-guided requests and the batch sampling CLI at the flagship
 LayoutDM width (Rico25: vocab 155, 125 tokens, d_model 464, 8 heads of 58,
 FFN 1856, 4 layers; random weights from a seed), then the evaluation path
@@ -45,7 +46,17 @@ no extractor weights are in the repo), and checks them:
                 (b) bfloat16 train steps at B=1024: samples/s, peak memory,
                 K1/K2 launches = layers x steps, and the same steps with the
                 plain attention; (c) 20 steps on one batch lower its loss;
-5a. fidnet_train the FIDNet trainer (`eval.fidnet_train`): FIDNetV3 on the
+5a. zoo         the baseline zoo (`phase_zoo`): MaskGIT, BLT, RUITE and the
+                autoregressive LayoutTransformer at d_model 512, 8 heads,
+                FFN 2048, 4 layers, VQDiffusion at 464 / 8 / 1856, Rico25,
+                bf16: train steps at B=256 (samples/s), sampling at B=256
+                (layouts/s; VQDiffusion T=100 with K1 launched layers x
+                steps, the zoo's masked attention launching no kernel),
+                MaskGIT under fused_ffn with K3 at (512, 2048, relu) held
+                to its plain version and timed, the weights through a
+                reference state dict and back, and in float32 the
+                autoregressive cached decode against the recompute decode;
+5b. fidnet_train the FIDNet trainer (`eval.fidnet_train`): FIDNetV3 on the
                 synthetic dataset at S = 25, batch 64, 500 steps; the
                 validation loss falls, the checkpoint exists, steps/s;
 6. train_cli    the trainer (`train.loop.train`) on the synthetic dataset
@@ -1038,6 +1049,268 @@ def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
     return out
 
 
+# the baseline zoo of the zoo phase: its experiments, and the decode steps of
+# the iterative ones (BLT decodes in three attribute groups: 9, not 10);
+# VQDiffusion runs its trained T
+ZOO_FAMILIES = ("maskgit", "blt", "ruite", "autoreg", "vqdiffusion")
+ZOO_STEPS = {"maskgit": 10, "blt": 9}
+# logits of a model against the same weights through a reference state dict
+# written and imported: the same weights on the same kernels
+ZOO_IMPORT_TOL = 1e-6
+
+
+def zoo_config(experiment: str, dtype: str):
+    """A zoo experiment on Rico25 (25 elements) at the widths of its
+    overlay: the zoo at the `BackboneConfig` defaults (d_model 512, 8 heads,
+    FFN 2048, 4 layers, dropout 0.1), VQDiffusion at the flagship's shrunk
+    464 / 8 / 1856; linear box quantization, as `flagship_config`."""
+    from layoutdm_tpu_torch.configs import build_train_config
+
+    return build_train_config(
+        experiment, "rico25", ["data.bbox_quantization=linear", f"model.dtype={dtype}"],
+    )
+
+
+def zoo_layouts(rs: np.random.RandomState, B: int, cfg) -> dict:
+    """`random_layouts` through the experiment's loader transforms (RUITE's
+    box noise among them)."""
+    from layoutdm_tpu_torch.data.transforms import compose_transform
+
+    return compose_transform(list(cfg.data.transforms))(rs, random_layouts(rs, B, cfg))
+
+
+def check_decoded(what: str, out: dict, B: int, cfg) -> int:
+    """Decoded layouts of the config's shape: finite boxes in [0, 1] and
+    labels in range wherever an element is; returns the element count."""
+    S, C = cfg.dataset.max_seq_length, cfg.dataset.num_categories
+    bbox, label, mask = out["bbox"], out["label"], out["mask"]
+    if not (bbox.shape == (B, S, 4) and label.shape == (B, S) and mask.shape == (B, S)):
+        raise AssertionError(f"{what}: shapes {bbox.shape} {label.shape} {mask.shape}")
+    b, lab = bbox[mask], label[mask]
+    if not (torch.isfinite(b).all() and (b >= 0).all() and (b <= 1).all()):
+        raise AssertionError(f"{what}: boxes outside [0, 1]")
+    if not ((lab >= 0).all() and (lab < C).all()):
+        raise AssertionError(f"{what}: labels outside [0, {C})")
+    n = int(mask.sum())
+    if n == 0:
+        raise AssertionError(f"{what}: no element in {B} layouts")
+    return n
+
+
+def _no_launches(what: str) -> dict:
+    """Masked attention never reaches a kernel: every count is 0."""
+    got = launch_counts()
+    if any(got.values()):
+        raise AssertionError(f"{what}: kernels launched on masked calls: {got}")
+    return got
+
+
+def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4,
+              cfgs=None, smi="") -> dict:
+    """The baseline zoo on the card: MaskGIT, BLT, RUITE and the
+    autoregressive LayoutTransformer at the `BackboneConfig` defaults and
+    VQDiffusion at 464 / 8 / 1856, Rico25 shapes, bfloat16, random weights
+    from a seed.  For each family: ``warmup`` + ``steps`` train steps at
+    ``batch`` (finite losses; samples/s), sampling at ``batch`` (MaskGIT
+    T=10, BLT T=9, RUITE one refinement pass, the autoregressive model with
+    the KV cache, VQDiffusion T=100 on the default path, K1 launched layers
+    x steps; valid layouts; layouts/s), and its weights written under the
+    reference's key names with ``torch.save`` and imported again (logits
+    within ZOO_IMPORT_TOL).  Masked attention (all of the zoo) launches no
+    kernel.  Then, in float32, the cached decode against the recompute
+    decode on ``rows`` rows; and MaskGIT sampled under ``fused_ffn`` (K3
+    launched layers x steps), K3 held to its plain version at the shapes
+    that run gives it (512, 2048, relu) and timed beside the unfused FFN.
+    ``cfgs`` maps a family to a config (small ones on the CPU)."""
+    import torch.nn.functional as F
+
+    from layoutdm_tpu_torch.configs import SamplingConfig
+    from layoutdm_tpu_torch.factory import build_model, build_tokenizer
+    from layoutdm_tpu_torch.ops.ffn import fused_ln_ffn_residual, ln_ffn_residual_reference
+    from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
+    from layoutdm_tpu_torch.train.step import init_train_state, make_optimizer, train_step
+    from layoutdm_tpu_torch.utils.torch_port import (
+        convert_categorical_transformer,
+        import_layoutdm_checkpoint,
+        load_torch_state_dict,
+        to_reference_state_dict,
+    )
+
+    cfgs = cfgs or {}
+    rs = np.random.RandomState(30)
+    out = {"phase": "zoo", "batch": batch, "nvidia_smi": smi, "families": {}}
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    for i, family in enumerate(ZOO_FAMILIES):
+        cfg = cfgs.get(family) or zoo_config(family, "bfloat16")
+        tok = build_tokenizer(cfg)
+        model = build_model(cfg, tok, device, generator=torch.Generator().manual_seed(40 + i),
+                            **path_switches("default"))
+        bb, layers = model.backbone_cfg, model.backbone_cfg.num_layers
+        res = {"dtype": cfg.model.dtype, "d_model": bb.d_model, "nhead": bb.nhead, "dim_feedforward": bb.dim_feedforward,
+               "num_layers": layers, "dropout": bb.dropout, "tokens": model.seq_len,
+               "vocab": model.num_classes}
+        gen = torch.Generator(device=device).manual_seed(50 + i)
+
+        # 1. training
+        state = init_train_state(
+            model, make_optimizer(model.net, cfg.optimizer.lr, cfg.training.weight_decay,
+                                  tuple(cfg.optimizer.betas)), cfg.training.grad_norm_clip)
+        batches = [model.preprocess(zoo_layouts(rs, batch, cfg), gen) for _ in range(2)]
+        reset_launches()
+        for k in range(warmup):
+            train_step(state, batches[k % 2], gen)
+        sync()
+        t0 = time.perf_counter()
+        metrics = [train_step(state, batches[k % 2], gen) for k in range(steps)]
+        sync()
+        sec = time.perf_counter() - t0
+        losses = [m["loss"].item() for m in metrics]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{family}: non-finite train losses {losses}")
+        if family == "vqdiffusion":  # dropout 0.0, no mask: K1 forward, K2 backward
+            got = launch_counts()
+            n = layers * (warmup + steps)
+            if not (got["K1"] == got["K2"] == n):
+                raise AssertionError(f"{family} train launches {got}, K1 = K2 = {n} wanted")
+            train_launches = got
+        else:
+            train_launches = _no_launches(f"{family} train")
+        res["train"] = {"samples_per_s": batch * steps / sec, "ms_per_step": 1e3 * sec / steps,
+                        "losses": losses, "launches": train_launches}
+
+        # 2. sampling
+        T = ZOO_STEPS.get(family)
+        sampling = SamplingConfig(name="random", num_timesteps=T)
+        if family == "vqdiffusion":
+            run = lambda: model.sample(torch.arange(batch, dtype=torch.int64), batch)  # noqa: E731
+        elif family == "ruite":
+            lay = zoo_layouts(rs, batch, cfg)
+            lay["bbox"] = lay.get("bbox_orig", lay["bbox"])
+            cond = to_sampler_cond(
+                get_cond(lay, tok, "refinement", model_type=family,
+                         generator=torch.Generator().manual_seed(0)), tok, sampling)
+            run = lambda: model.sample(gen, batch, cond=cond, sampling=sampling)  # noqa: E731
+        else:
+            run = lambda: model.sample(gen, batch, sampling=sampling,  # noqa: E731
+                                       state=state.lt_state)
+        model.net.eval()
+        run()  # warm-up (and, for VQDiffusion, the kernels' first launches)
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        layouts = run()
+        sync()
+        sec = time.perf_counter() - t0
+        if family == "vqdiffusion":
+            sample_launches = check_path_launches(f"{family} chain", "default",
+                                                  layers * model.q.num_timesteps)
+        else:
+            sample_launches = _no_launches(f"{family} sampling")
+        if family == "vqdiffusion":
+            T = model.q.num_timesteps
+        res["sample"] = {"steps": T or (model.gen_len if family == "autoreg" else 1),
+                         "seconds": sec, "layouts_per_s": batch / sec,
+                         "elements": check_decoded(f"{family} sampling", layouts, batch, cfg),
+                         "launches": sample_launches}
+
+        # 3. MaskGIT again under fused_ffn: K3 on the FFN of every step
+        if family == "maskgit":
+            fused = build_model(cfg, tok, device, **dict(path_switches("default"), fused_ffn=True))
+            fused.net.load_state_dict(model.net.state_dict())
+            reset_launches()
+            t0 = time.perf_counter()
+            layouts = fused.sample(gen, batch, sampling=sampling, state=state.lt_state)
+            sync()
+            sec = time.perf_counter() - t0
+            k3_launches = launch_counts()
+            want = {k: layers * T if k == "K3" else 0 for k in k3_launches}
+            if k3_launches != want:
+                raise AssertionError(f"maskgit fused_ffn launches {k3_launches} != {want}")
+            blk = fused.net.backbone.layers[0]
+            p = {"ln_scale": blk.norm2.weight, "ln_bias": blk.norm2.bias,
+                 "w1": blk.linear1.weight, "b1": blk.linear1.bias,
+                 "w2": blk.linear2.weight, "b2": blk.linear2.bias}
+            x = (0.5 * torch.randn((batch, model.seq_len, bb.d_model),
+                                   generator=torch.Generator().manual_seed(60))).to(
+                device, model.net.dtype)
+            with torch.inference_mode():
+                got = fused_ln_ffn_residual(x, **p, activation=bb.activation)
+                sync()
+                k3_err = _check_fused("K3 at the zoo's width", got,
+                                      ln_ffn_residual_reference(x, **p, activation=bb.activation))
+
+                def unfused():
+                    h = blk.norm2(x.float()).to(x.dtype)
+                    h = blk.activation(F.linear(h, p["w1"].to(x.dtype), p["b1"].to(x.dtype)))
+                    return x + F.linear(h, p["w2"].to(x.dtype), p["b2"].to(x.dtype))
+
+                timed = torch.device(device).type == "cuda"
+                M, D, Fd = batch * model.seq_len, bb.d_model, bb.dim_feedforward
+                res["fused_ffn"] = {
+                    "sample_seconds": sec, "layouts_per_s": batch / sec,
+                    "elements": check_decoded("maskgit fused_ffn", layouts, batch, cfg),
+                    "launches": k3_launches,
+                    "k3": {"shape": [M, D, Fd, bb.activation], "max_abs_err": k3_err,
+                           "ms": cuda_ms(lambda: fused_ln_ffn_residual(
+                               x, **p, activation=bb.activation)) if timed else None,
+                           "plain_ms": cuda_ms(lambda: ln_ffn_residual_reference(
+                               x, **p, activation=bb.activation)) if timed else None,
+                           "unfused_ms": cuda_ms(unfused) if timed else None,
+                           # x read, out written (bf16); float32 weights read once
+                           **bound(2 * M * D * 2 + 2 * D * Fd * 4 + (Fd + 3 * D) * 4,
+                                   4 * M * D * Fd)},
+                }
+            del fused, x, got
+
+        # 4. the weights under the reference's key names, written and imported
+        tt = bb.timestep_type
+        prefix = "model.module.transformer." if family == "vqdiffusion" else "model.module."
+        ref = to_reference_state_dict(model.net.state_dict(), layers, tt, prefix)
+        path = os.path.join(work_dir, f"{family}_best_model.pt")
+        if family == "vqdiffusion":
+            ref["model.module.Lt_history"] = state.lt_state.history.cpu()
+            ref["model.module.Lt_count"] = state.lt_state.count.cpu()
+            torch.save({"state_dict": ref}, path)
+            sd, lt = import_layoutdm_checkpoint(path, layers, tt)
+            if not torch.equal(lt.count, state.lt_state.count.cpu()):
+                raise AssertionError("vqdiffusion: imported Lt counts differ")
+        else:
+            torch.save(ref, path)
+            sd = convert_categorical_transformer(load_torch_state_dict(path), layers, tt, prefix)
+        other = build_model(cfg, tok, device, **path_switches("default"))
+        other.net.load_state_dict(sd)
+        ids = torch.as_tensor(rs.randint(0, model.num_classes, (8, model.seq_len)), device=device)
+        t = torch.full((8,), 7, device=device) if family == "vqdiffusion" else None
+        with torch.inference_mode():
+            err = (other.net(ids, t) - model.net(ids, t)).abs().max().item()
+        if not err <= ZOO_IMPORT_TOL:
+            raise AssertionError(f"{family}: imported reference weights, logits err {err}")
+        res["reference_import_max_abs_err"] = err
+        out["families"][family] = res
+        del model, other, state, batches, layouts
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+    # 2b. float32: the cached decode against the recompute decode
+    cfg = cfgs.get("autoreg32") or zoo_config("autoreg", "float32")
+    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(70),
+                        **path_switches("default"))
+    sampling = SamplingConfig(name="random")
+    a = model.sample_ids(torch.Generator(device=device).manual_seed(71), rows, sampling=sampling)
+    b = model.sample_ids(torch.Generator(device=device).manual_seed(71), rows, sampling=sampling,
+                         use_cache=False)
+    if not torch.equal(a, b):
+        raise AssertionError(f"autoreg: cached decode differs from recompute on "
+                             f"{int((a != b).any(dim=1).sum())} of {rows} rows")
+    out["autoreg_cached_equals_recompute_rows"] = rows
+    emit(out)
+    return out
+
+
 def phase_train_cli(work_dir: str, device="cuda", epochs=10, overrides=()) -> dict:
     """The trainer on the synthetic dataset (2,048 layouts, 32 steps an
     epoch) into ``work_dir``/job, which the service then loads and answers
@@ -1645,6 +1918,7 @@ def main() -> int:
     tr = run(phase_train, smi=smi)
     serves = {}
     with tempfile.TemporaryDirectory() as work:
+        run(phase_zoo, work_dir=work, smi=smi)
         run(phase_fidnet_train, work_dir=work)
         run(phase_train_cli, work_dir=work)
         for path in ("default", "fused", "v2", "smajor"):

@@ -20,14 +20,9 @@ from layoutdm_tpu_torch.tokenizer.clustering import fit_coordinate_clusters
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 from layoutdm_tpu_torch.utils.device import require_device
 
-# baseline-zoo model names and the port that will bring them
+# model names of later ports, and the port that will bring each
 _LATER = {
-    "maskgit": "the baseline-zoo port",
-    "blt": "the baseline-zoo port",
-    "autoreg": "the baseline-zoo port",
-    "elem_wise_autoreg": "the baseline-zoo port",
-    "ruite": "the baseline-zoo port",
-    "bart": "the baseline-zoo port",
+    "bart": "the encoder-decoder port (with its checkpoint converter)",
     "diffusionlm": "the continuous-diffusion port",
     "bitdiffusion": "the continuous-diffusion port",
 }
@@ -37,10 +32,11 @@ def resolve_centers(
     cfg: TrainConfig, train_data: Optional[LayoutData] = None
 ) -> Optional[np.ndarray]:
     """Find or fit per-coordinate cluster centers for kmeans/percentile
-    quantization, as the JAX package does: the cached ``.npz`` at
-    ``<dataset dir>/../clustering_weights/{name}_max{S}_{method}_train_clusters.npz``,
-    else fit on the train split's boxes and cache them there.  The
-    reference's pickled sklearn objects are not read."""
+    quantization, as the JAX package does: under
+    ``<dataset dir>/../clustering_weights/`` the cached
+    ``{name}_max{S}_{method}_train_clusters.npz``, else the reference's
+    ``.pkl`` of the same stem, else fit on the train split's boxes and
+    cache them as the ``.npz``."""
     method = cfg.data.bbox_quantization
     if method == "linear":
         return None
@@ -48,10 +44,11 @@ def resolve_centers(
         os.path.dirname(cfg.dataset.dir.rstrip("/")), "clustering_weights"
     )
     stem = f"{cfg.dataset.name}_max{cfg.dataset.max_seq_length}_{method}_train_clusters"
-    path = os.path.join(base, stem + ".npz")
     nb = cfg.data.num_bin_bboxes
-    if os.path.exists(path):
-        return load_kmeans_centers(path, nb)
+    for ext in (".npz", ".pkl"):
+        path = os.path.join(base, stem + ext)
+        if os.path.exists(path):
+            return load_kmeans_centers(path, nb)
 
     if train_data is None:
         train_data = load_dataset(
@@ -59,7 +56,7 @@ def resolve_centers(
         )
     fitted = fit_coordinate_clusters(train_data.bbox[train_data.mask], (nb,), method)
     os.makedirs(base, exist_ok=True)
-    np.savez(path, **fitted)
+    np.savez(os.path.join(base, stem + ".npz"), **fitted)
     return np.stack([fitted[f"{k}-{nb}"] for k in VAR_NAMES])
 
 
@@ -89,7 +86,9 @@ def build_model(
     attn_v2: Optional[bool] = None, smajor: Optional[bool] = None,
 ):
     """The model of ``cfg`` on ``device`` (CUDA unless asked for the CPU;
-    raises when CUDA is missing).  The denoiser's inference path: ``fused_block`` /
+    raises when CUDA is missing): ``layoutdm`` (with ``q_type`` constrained,
+    or vanilla for the ``vqdiffusion`` experiment), ``maskgit``, ``blt``,
+    ``ruite`` or ``autoreg`` / ``elem_wise_autoreg``.  The denoiser's inference path: ``fused_block`` /
     ``fused_ffn`` select the fused kernels (K4 / K3), ``attn_v2`` the
     block-diagonal attention (K5) and ``smajor`` the S-major attention (K6);
     each defaults to the JAX package's own switch in the environment
@@ -110,13 +109,27 @@ def build_model(
             ("smajor", "LAYOUTDM_TPU_SMAJOR", smajor),
         )
     }
+    kw = dict(dtype=dtype, device=device, generator=generator, **switches)
     if name == "layoutdm":
         from layoutdm_tpu_torch.models.layoutdm import LayoutDM
 
-        return LayoutDM(
-            cfg.backbone, tokenizer, cfg.model, dtype=dtype, device=device,
-            generator=generator, **switches,
-        )
+        return LayoutDM(cfg.backbone, tokenizer, cfg.model, **kw)
+    if name == "maskgit":
+        from layoutdm_tpu_torch.models.maskgit import MaskGIT
+
+        return MaskGIT(cfg.backbone, tokenizer, cfg.model, **kw)
+    if name == "blt":
+        from layoutdm_tpu_torch.models.blt import BLT
+
+        return BLT(cfg.backbone, tokenizer, cfg.model, **kw)
+    if name in ("autoreg", "elem_wise_autoreg"):
+        from layoutdm_tpu_torch.models.autoreg import ElemWiseAutoreg
+
+        return ElemWiseAutoreg(cfg.backbone, tokenizer, cfg.model, **kw)
+    if name == "ruite":
+        from layoutdm_tpu_torch.models.ruite import RUITE
+
+        return RUITE(cfg.backbone, tokenizer, cfg.model, **kw)
     if name in _LATER:
         raise KeyError(f"model {name!r} is not ported yet; it comes with {_LATER[name]}")
     raise KeyError(name)

@@ -8,9 +8,10 @@ The model lives on CUDA unless given ``device="cpu"``.  ``fused_block`` /
 ``attn_v2`` / ``smajor`` its attention on K5 / K6 (``models.nn.Block``);
 training keeps the unfused path.
 
-Ported: ``q_type="constrained"`` with the flattened transformer.  The
-vanilla Q and the aggregated transformer come with later ports and raise
-``NotImplementedError`` here.
+Ported: ``q_type="constrained"`` (LayoutDM) and ``q_type="vanilla"``
+(the ``vqdiffusion`` experiment: one mask-and-replace matrix over the full
+vocabulary) with the flattened transformer.  The aggregated transformer
+comes with a later port and raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -27,12 +28,18 @@ from layoutdm_tpu_torch.models.diffusion.sampler import (
     make_predict_start,
     sample_chain,
 )
-from layoutdm_tpu_torch.models.nn import Dropout, make_transformer
+from layoutdm_tpu_torch.models.diffusion.vanilla import VanillaQ
+from layoutdm_tpu_torch.models.nn import Dropout, denoiser_path, make_transformer
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 from layoutdm_tpu_torch.utils.device import require_device
 
 
 class LayoutDM:
+    # serving capabilities (`serve_cli`): the chain takes per-row seeds
+    # (request coalescing) and a guidance function (relation task)
+    supports_per_row_keys = True
+    supports_guidance = True
+
     def __init__(
         self,
         backbone: BackboneConfig,
@@ -47,8 +54,8 @@ class LayoutDM:
         smajor: bool = False,
     ):
         cfg = model_cfg or ModelConfig()
-        if cfg.q_type != "constrained":
-            raise NotImplementedError(f"q_type={cfg.q_type!r} is not ported yet")
+        if cfg.q_type not in ("constrained", "vanilla"):
+            raise ValueError(f"unknown q_type {cfg.q_type!r}")
         if cfg.transformer_type != "flattened":
             raise NotImplementedError(
                 f"transformer_type={cfg.transformer_type!r} is not ported yet"
@@ -62,10 +69,12 @@ class LayoutDM:
         self.device = require_device(device)
         self.seq_len = tokenizer.max_token_length
         self.num_classes = tokenizer.N_total
-        self.q = ConstrainedQ(
-            tokenizer, cfg.num_timesteps, att_1=cfg.att_1, att_T=cfg.att_T,
-            ctt_1=cfg.ctt_1, ctt_T=cfg.ctt_T, device=self.device,
-        )
+        sched = dict(att_1=cfg.att_1, att_T=cfg.att_T, ctt_1=cfg.ctt_1,
+                     ctt_T=cfg.ctt_T, device=self.device)
+        if cfg.q_type == "constrained":
+            self.q = ConstrainedQ(tokenizer, cfg.num_timesteps, **sched)
+        else:
+            self.q = VanillaQ(tokenizer.N_total, cfg.num_timesteps, **sched)
         self.backbone_cfg = backbone.shrunk(29 / 32)
         self.net = make_transformer(
             self.device, generator,
@@ -85,17 +94,7 @@ class LayoutDM:
     @property
     def denoiser_path(self) -> str:
         """The kernels the denoiser's inference runs."""
-        block = self.net.backbone.layers[0]
-        if block.fused_block:
-            attn = "fused attention block (K4)"
-        elif block.attn.attn_v2:
-            attn = "block-diagonal attention (K5)"
-        elif block.attn.smajor:
-            attn = "S-major attention (K6)"
-        else:
-            attn = "attention (K1)"
-        ffn = "fused LN-FFN-residual (K3)" if block.fused_ffn else "unfused FFN"
-        return f"{attn} + {ffn}"
+        return denoiser_path(self.net)
 
     # -- training -----------------------------------------------------------
     def init_state(self) -> LtState:
@@ -151,6 +150,7 @@ class LayoutDM:
         num_timesteps_eval: Optional[int] = None,
         get_intermediates: bool = False,
         guidance_fn=None,
+        state=None,
     ):
         """Run the reverse chain and return token ids (B, S) on the model's
         device.  ``rng``: a ``torch.Generator`` on any device (the noise is
@@ -158,7 +158,8 @@ class LayoutDM:
         seeds.  ``guidance_fn(log_probs, t, cond)`` adjusts each step's
         log-probs (relation guidance); a guided chain runs under
         ``torch.no_grad`` rather than inference mode, so the guidance can
-        differentiate its own loss, and the denoiser still sees no grad."""
+        differentiate its own loss, and the denoiser still sees no grad.
+        ``state`` is unused (the zoo's samplers read theirs)."""
         sampling = sampling or SamplingConfig()
         if cond is None:
             cond = SamplerCond.empty(batch_size, self.seq_len, self.device)

@@ -20,7 +20,15 @@ Training mode is a ``Dropout`` passed to ``forward``: it applies the fixed
 ones).  Under autograd the attention runs through
 ``fused_attention_qkv_diff`` (K1 forward, K2 backward).  Dropout on the
 attention probabilities (``cfg.dropout > 0`` in training) needs the
-probability tensor, which the kernels never form: it raises.
+probability tensor, which the kernels never form: those calls take the
+plain path of the JAX ``SelfAttention`` (scores, float32 softmax, dropout,
+product), as do calls with an additive (S, S) mask (``lookahead=False``:
+the causal mask of the autoregressive models) or a (B, S) key-padding
+mask; the JAX gates decline masks for every kernel, and so do these.
+Without a mask no mask tensor is built and the kernels are routed as
+before.  ``CategoricalTransformer.decode_step`` feeds one token through
+the stack against per-layer key/value caches (`KVCache`), the JAX
+``decode=True`` mode.
 
 The fused denoiser path (``fused_block`` / ``fused_ffn``, the JAX
 package's ``LAYOUTDM_TPU_FUSED_BLOCK`` / ``LAYOUTDM_TPU_FUSED_FFN``) has the
@@ -31,7 +39,9 @@ admit it: no dropout, no autograd, and shapes the kernels take; training
 keeps K1/K2 and the unfused FFN.  Two more inference paths swap the
 attention kernel alone: ``attn_v2`` (K5, the one path with heads padded to
 64 lanes, as its kernel's function is defined on them) and ``smajor`` (K6);
-the order is K4, K5, K6, K1, as in the JAX ``SelfAttention``.
+the order is K4, K5, K6, K1, as in the JAX ``SelfAttention``.  A masked
+call never takes K4, K5, K6 or K1; K3 does not see the mask and keeps the
+FFN of a masked inference call, as in the JAX ``Block``.
 """
 
 from __future__ import annotations
@@ -163,10 +173,23 @@ class AdaLayerNorm(nn.Module):
         return y * (1 + scale) + shift
 
 
+class KVCache:
+    """Per-layer key/value caches of single-token decoding (the JAX
+    ``decode=True`` mode's "cache" collection): (B, L, H, hd) keys and
+    values in the compute dtype, and the position the next token takes."""
+
+    def __init__(self, num_layers: int, batch: int, length: int, nhead: int,
+                 head_dim: int, dtype, device):
+        shape = (batch, length, nhead, head_dim)
+        self.keys = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)]
+        self.values = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)]
+        self.index = 0
+
+
 class SelfAttention(nn.Module):
-    """Dense, mask-free multi-head self-attention with a packed qkv
-    projection; the packed slab feeds the kernels directly: K1 without
-    grad, K1 and K2 through autograd.
+    """Multi-head self-attention with a packed qkv projection; the packed
+    slab feeds the kernels directly: K1 without grad, K1 and K2 through
+    autograd.  A mask or attention dropout takes the plain path.
 
     Without grad and dropout, ``attn_v2`` (the JAX package's
     ``LAYOUTDM_TPU_ATTN_V2``) runs K5 on heads zero-padded to 64 lanes by
@@ -190,18 +213,19 @@ class SelfAttention(nn.Module):
         self.out = nn.Linear(d_model, d_model)
 
     def forward(self, x: torch.Tensor, dropout: Optional[Dropout] = None,
-                fold_residual: bool = False) -> torch.Tensor:
-        """attn(x); with ``fold_residual``, x + attn(x) through K4."""
+                fold_residual: bool = False, mask: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """attn(x); with ``fold_residual``, x + attn(x) through K4.
+        ``mask``: (S, S) additive; ``key_padding_mask``: (B, S), True at
+        keys no query may attend."""
         if fold_residual:
             return fused_attention_block(
                 x.to(self.dtype), self.qkv.weight, self.qkv.bias,
                 self.out.weight, self.out.bias, self.nhead,
             )
-        if dropout is not None and self.dropout > 0.0:
-            raise NotImplementedError(
-                "attention-probability dropout (backbone.dropout > 0 in "
-                "training) is not ported yet: ROADMAP Queue 1 item 4"
-            )
+        attn_dropout = dropout is not None and self.dropout > 0.0
+        if attn_dropout or mask is not None or key_padding_mask is not None:
+            return self._plain(x, mask, key_padding_mask, dropout if attn_dropout else None)
         inference = dropout is None and not torch.is_grad_enabled()
         if inference and self.attn_v2 and can_use_blockdiag(self.head_dim, x.shape[1]):
             return self._blockdiag(x)
@@ -213,6 +237,42 @@ class SelfAttention(nn.Module):
         else:
             o = fused_attention_qkv(qkv, self.nhead)
         return _linear(o, self.out, self.dtype)
+
+    def _plain(self, x, mask, key_padding_mask, dropout) -> torch.Tensor:
+        """The JAX plain path (`nn.py:451-476`): scores in the compute
+        dtype, the additive mask added, padded keys filled with -1e9, a
+        float32 softmax cast back, dropout on the probabilities."""
+        dt, H, hd = self.dtype, self.nhead, self.head_dim
+        B, S, D = x.shape
+        q, k, v = _linear(x, self.qkv, dt).reshape(B, S, 3, H, hd).unbind(2)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        if mask is not None:
+            scores = scores + mask[None, None].to(scores.dtype)
+        if key_padding_mask is not None:
+            scores = scores.masked_fill(key_padding_mask[:, None, None, :], -1e9)
+        attn = torch.softmax(scores.float(), dim=-1).to(dt)
+        if dropout is not None:
+            attn = dropout(attn, self.dropout)
+        o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
+        return _linear(o, self.out, dt)
+
+    def decode_step(self, x: torch.Tensor, cache: KVCache, layer: int) -> torch.Tensor:
+        """One token (B, 1, D) against the filled prefix of ``layer``'s
+        caches, its own key and value written at ``cache.index`` (JAX
+        `SelfAttention._decode_step`, `nn.py:185-213`).  The JAX step fills
+        the scores past the prefix with -1e9, whose weights are exactly 0
+        after the softmax: here those keys are left out."""
+        dt, H, hd = self.dtype, self.nhead, self.head_dim
+        B, _, D = x.shape
+        i = cache.index
+        q, k, v = _linear(x, self.qkv, dt).reshape(B, 1, 3, H, hd).unbind(2)
+        cache.keys[layer][:, i] = k[:, 0]
+        cache.values[layer][:, i] = v[:, 0]
+        keys, values = cache.keys[layer][:, : i + 1], cache.values[layer][:, : i + 1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, keys) / math.sqrt(hd)
+        attn = torch.softmax(scores.float(), dim=-1).to(dt)
+        o = torch.einsum("bhqk,bkhd->bqhd", attn, values).reshape(B, 1, D)
+        return _linear(o, self.out, dt)
 
     def _blockdiag(self, x: torch.Tensor) -> torch.Tensor:
         """K5 between the padded-head projections (JAX `nn.py:271-287`)."""
@@ -261,8 +321,12 @@ class Block(nn.Module):
         self.linear2 = nn.Linear(cfg.dim_feedforward, cfg.d_model)
         self.norm2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, timestep: torch.Tensor,
-                dropout: Optional[Dropout] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timestep: Optional[torch.Tensor],
+                dropout: Optional[Dropout] = None, mask: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None, layer: int = 0) -> torch.Tensor:
+        """``mask`` / ``key_padding_mask``: as `SelfAttention`; ``cache``:
+        decode one token against ``layer``'s caches."""
         drop = dropout or (lambda h, rate: h)
         if isinstance(self.norm1, AdaLayerNorm):
             x = self.norm1(x, timestep)
@@ -273,10 +337,15 @@ class Block(nn.Module):
         x = x.to(self.dtype)
         # the fused kernels have no backward and no dropout: inference only
         inference = dropout is None and not torch.is_grad_enabled()
-        if self.fused_block and inference:
+        masked = mask is not None or key_padding_mask is not None
+        if cache is not None:
+            x = x + self.attn.decode_step(x, cache, layer)
+        elif self.fused_block and inference and not masked:
             x = self.attn(x, fold_residual=True)
         else:
-            x = x + drop(self.attn(x, dropout), self.dropout)
+            x = x + drop(self.attn(x, dropout, mask=mask, key_padding_mask=key_padding_mask),
+                         self.dropout)
+        # the FFN does not see the mask: K3 keeps a masked inference call
         if self.fused_ffn and inference:
             return fused_ln_ffn_residual(
                 x, self.norm2.weight, self.norm2.bias, self.linear1.weight,
@@ -296,10 +365,12 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(Block(cfg, dtype, **switches) for _ in range(cfg.num_layers))
 
-    def forward(self, x: torch.Tensor, timestep: torch.Tensor,
-                dropout: Optional[Dropout] = None) -> torch.Tensor:
-        for layer in self.layers:
-            x = layer(x, timestep, dropout)
+    def forward(self, x: torch.Tensor, timestep: Optional[torch.Tensor],
+                dropout: Optional[Dropout] = None, mask: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x, timestep, dropout, mask, key_padding_mask, cache, i)
         return x
 
 
@@ -310,7 +381,9 @@ class PositionalEmbedding(nn.Module):
         super().__init__()
         self.pos_emb = nn.Parameter(torch.empty(max_token_length, d_model))
 
-    def forward(self, S: int) -> torch.Tensor:
+    def forward(self, S: int, position: Optional[int] = None) -> torch.Tensor:
+        if position is not None:
+            return self.pos_emb[position : position + 1][None]
         return self.pos_emb[:S][None]
 
 
@@ -332,20 +405,23 @@ class ElementPositionalEmbedding(nn.Module):
             nn.Parameter(torch.empty(1, d_model)) if remainder == 1 else None
         )
 
-    def forward(self, S: int) -> torch.Tensor:
+    def forward(self, S: int, position: Optional[int] = None) -> torch.Tensor:
         n_elem = self.elem_emb.shape[0]
         emb = torch.repeat_interleave(self.elem_emb, self.n_attr, dim=0) + (
             self.attr_emb.repeat(n_elem, 1)
         )
         if self.bos_emb is not None:
             emb = torch.cat([self.bos_emb, emb], dim=0)[: self.max_token_length]
+        if position is not None:
+            return emb[position : position + 1][None]
         return emb[:S][None]
 
 
 class CategoricalTransformer(nn.Module):
     """Token-sequence denoiser (`nn_lib.py:137-237`): embed -> positions ->
     timestep-aware encoder -> float32 LayerNorm + linear head over the
-    vocabulary.  Returns (B, S, V) float32 logits."""
+    vocabulary.  Returns (B, S, V) float32 logits.  ``lookahead=False``
+    adds the causal mask (the autoregressive models)."""
 
     def __init__(
         self,
@@ -355,6 +431,7 @@ class CategoricalTransformer(nn.Module):
         pos_emb: str = "elem_attr",
         n_attr_per_elem: int = 5,
         dtype=torch.float32,
+        lookahead: bool = True,
         **switches,
     ):
         """``switches``: the denoiser-path keywords of `Block`
@@ -362,6 +439,8 @@ class CategoricalTransformer(nn.Module):
         super().__init__()
         d = backbone.d_model
         self.dtype = dtype
+        self.lookahead = lookahead
+        self.max_token_length = max_token_length
         self.cat_emb = nn.Embedding(num_classes, d)
         if pos_emb == "default":
             self.pos = PositionalEmbedding(d, max_token_length)
@@ -371,14 +450,37 @@ class CategoricalTransformer(nn.Module):
         self.head_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.head = nn.Linear(d, num_classes, bias=False)
 
-    def forward(self, seq: torch.Tensor, timestep: torch.Tensor,
-                dropout: Optional[Dropout] = None) -> torch.Tensor:
-        """Logits; ``dropout`` switches training mode on."""
+    def forward(self, seq: torch.Tensor, timestep: Optional[torch.Tensor] = None,
+                dropout: Optional[Dropout] = None,
+                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits; ``dropout`` switches training mode on;
+        ``key_padding_mask`` (B, S) is True at keys no query attends."""
+        S = seq.shape[1]
         h = embed_tokens(self.cat_emb.weight, seq, self.dtype)
-        h = h + self.pos(seq.shape[1])
+        h = h + self.pos(S)
         if dropout is not None:
             h = dropout(h, EMB_DROPOUT)
-        h = self.backbone(h.to(self.dtype), timestep, dropout)
+        mask = None
+        if not self.lookahead:
+            mask = torch.triu(torch.full((S, S), -torch.inf, device=seq.device), diagonal=1)
+        h = self.backbone(h.to(self.dtype), timestep, dropout, mask, key_padding_mask)
+        return self.head(self.head_norm(h.float()))
+
+    def new_cache(self, batch: int) -> KVCache:
+        """Empty decode caches for ``batch`` rows, as long as the positions."""
+        attn = self.backbone.layers[0].attn
+        return KVCache(len(self.backbone.layers), batch, self.max_token_length,
+                       attn.nhead, attn.head_dim, self.dtype, self.cat_emb.weight.device)
+
+    def decode_step(self, tok: torch.Tensor, cache: KVCache,
+                    timestep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, 1) tokens at position ``cache.index`` -> (B, 1, V) logits;
+        writes their keys and values and advances the position (the JAX
+        ``decode=True`` call, which reads its position from the cache)."""
+        h = embed_tokens(self.cat_emb.weight, tok, self.dtype)
+        h = h + self.pos(1, position=cache.index)
+        h = self.backbone(h.to(self.dtype), timestep, cache=cache)
+        cache.index += 1
         return self.head(self.head_norm(h.float()))
 
     @torch.no_grad()
@@ -406,6 +508,21 @@ class CategoricalTransformer(nn.Module):
             elif isinstance(m, (PositionalEmbedding, ElementPositionalEmbedding)):
                 for p in m.parameters(recurse=False):
                     fill(p, torch.rand(p.shape, generator=generator))
+
+
+def denoiser_path(net: CategoricalTransformer) -> str:
+    """The kernels the denoiser's mask-free inference runs."""
+    block = net.backbone.layers[0]
+    if block.fused_block:
+        attn = "fused attention block (K4)"
+    elif block.attn.attn_v2:
+        attn = "block-diagonal attention (K5)"
+    elif block.attn.smajor:
+        attn = "S-major attention (K6)"
+    else:
+        attn = "attention (K1)"
+    ffn = "fused LN-FFN-residual (K3)" if block.fused_ffn else "unfused FFN"
+    return f"{attn} + {ffn}"
 
 
 def make_transformer(device, generator: Optional[torch.Generator] = None, **kwargs):

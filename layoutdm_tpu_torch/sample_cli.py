@@ -4,8 +4,10 @@
     python -m layoutdm_tpu_torch.sample_cli job_dir=<dir> result_dir=<dir> \
         cond=unconditional|c|cwh|partial|refinement|relation [k=v ...] [device=cpu]
 
-Loads a job of the port's trainer (``config.json`` + ``params.pt``, or
-``seed_*`` subdirectories of such jobs), builds the task's condition for
+Loads a job of the port's trainer (``config.json`` + ``params.pt`` [+
+``aux_state.pt``], or ``seed_*`` subdirectories of such jobs) of any family
+`factory.build_model` builds (LayoutDM, VQDiffusion, MaskGIT, BLT, RUITE,
+the autoregressive model), builds the task's condition for
 every batch of the test split (``is_validation=true``: the val split), runs
 the reverse chain, timed (``ms per sample``, as `test.py:270-271`), and
 writes ``{results, inputs, train_cfg, test_cfg, ms_per_sample
@@ -20,9 +22,10 @@ environment (``LAYOUTDM_TPU_ATTN_V2=1``, ``LAYOUTDM_TPU_SMAJOR=1``,
 Relation-constrained generation adds the canvas element and samples
 relations (``AddCanvasElement``, ``AddRelationConstraints(edge_ratio=0.1,
 seed=0)``), guides the chain with them (`relation.guidance`) and reports
-the share of those relations the generated layouts break.  LayoutDM's
-sampling reads no trainer state (the Lt buffers only steer training), so
-only the weights are loaded.
+the share of those relations the generated layouts break; the zoo's
+samplers take no guidance and ignore it, as in the JAX package.  The
+trainer's aux state is loaded where the job has one: MaskGIT and BLT draw
+the element counts of unconditional layouts from it.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from layoutdm_tpu_torch.factory import build_model, build_tokenizer
 from layoutdm_tpu_torch.relation.guidance import RelationData, make_relation_guidance
 from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
 from layoutdm_tpu_torch.utils.device import require_device
-from layoutdm_tpu_torch.utils.params import load_job
+from layoutdm_tpu_torch.utils.params import load_aux_state, load_job
 
 logger = logging.getLogger(__name__)
 
@@ -92,6 +95,7 @@ def run_sampling(test_cfg: TestConfig, seed_dir: str, device="cuda") -> Dict:
     tokenizer = build_tokenizer(train_cfg)
     model = build_model(train_cfg, tokenizer, device)
     model.net.load_state_dict(state_dict)
+    state = load_aux_state(model.init_state(), seed_dir)
     logger.info("denoiser: %s on %s", model.denoiser_path, device)
     sampling = build_sampling_config(test_cfg, train_cfg)
 
@@ -129,9 +133,9 @@ def run_sampling(test_cfg: TestConfig, seed_dir: str, device="cuda") -> Dict:
         sizes = split_num_samples(test_cfg.num_uncond_samples, B)
         if test_cfg.warmup and sizes:
             # kernel builds and allocator warm-up outside the timed region
-            model.sample(gen, sizes[0], sampling=sampling)
+            model.sample(gen, sizes[0], sampling=sampling, state=state)
         for n in sizes:
-            timed(lambda: model.sample(gen, n, sampling=sampling))
+            timed(lambda: model.sample(gen, n, sampling=sampling, state=state))
     else:
         relation = test_cfg.cond == "relation"
         transform = compose_transform(RELATION_TRANSFORMS) if relation else None
@@ -156,7 +160,8 @@ def run_sampling(test_cfg: TestConfig, seed_dir: str, device="cuda") -> Dict:
             n = batch["label"].shape[0]
 
             def run(rng):
-                return model.sample(rng, n, cond=sc, sampling=sampling, guidance_fn=guidance)
+                return model.sample(rng, n, cond=sc, sampling=sampling, guidance_fn=guidance,
+                                    state=state)
 
             if test_cfg.warmup and n not in warmed:
                 run(torch.Generator(device=device).manual_seed(0))

@@ -44,6 +44,14 @@ only on its own seed and a request's result does not depend on its
 batch-mates (guidance takes the mean penalty over the fixed run width,
 whatever the other rows hold).  The JAX service compiles one
 program per lane; here each lane is the same eager chain, reused.
+
+A job of the baseline zoo (MaskGIT, BLT, RUITE, the autoregressive model)
+serves too.  Its samplers draw one stream for the whole batch, so a zoo
+lane runs one request per run, seeded by the request's seed
+(``supports_per_row_keys``), and ``relation`` is refused: the zoo takes no
+guidance (``supports_guidance``).  An unconditional zoo request reaches
+the sampler with no condition, so MaskGIT and BLT draw its element counts
+from the job's aux state, as their sampling CLI does.
 """
 
 from __future__ import annotations
@@ -150,11 +158,12 @@ class ServiceOverloaded(RuntimeError):
 class _Pending:
     """One request's rows queued at the coalescer."""
 
-    __slots__ = ("cond", "seeds", "event", "result", "error", "sec")
+    __slots__ = ("cond", "seeds", "seed", "event", "result", "error", "sec")
 
-    def __init__(self, cond: SamplerCond, seeds: np.ndarray):
+    def __init__(self, cond: SamplerCond, seeds: np.ndarray, seed: int = 0):
         self.cond = cond  # CPU SamplerCond, leading dim = n rows
         self.seeds = seeds  # (n,) uint32
+        self.seed = seed  # the request's seed (a zoo run's stream)
         self.event = threading.Event()
         self.result = None  # decoded dict sliced to this request's rows
         self.error = None
@@ -182,7 +191,7 @@ class LayoutService:
         `factory.build_model` (``fused_block``, ``fused_ffn``, ``attn_v2``,
         ``smajor``), which override the environment's switches."""
         from layoutdm_tpu_torch.factory import build_model, build_tokenizer
-        from layoutdm_tpu_torch.utils.params import load_job
+        from layoutdm_tpu_torch.utils.params import load_aux_state, load_job
 
         self.train_cfg, state_dict = load_job(job_dir)
         self.train_cfg.data.pad_until_max = True
@@ -190,13 +199,16 @@ class LayoutService:
         self.tokenizer = build_tokenizer(self.train_cfg)
         self.model = build_model(self.train_cfg, self.tokenizer, self.device, **switches)
         self.model.net.load_state_dict(state_dict)
+        self.state = load_aux_state(self.model.init_state(), job_dir)
         self.sampling = sampling or SamplingConfig(name="random")
         self.B = int(max_batch_size)
-        # allowed per-request num_timesteps values (a bounded set of lanes)
+        # allowed per-request num_timesteps values (a bounded set of lanes);
+        # diffusion models cannot go past their trained T, the iterative
+        # zoo (MaskGIT, BLT) takes any positive step count
         self.ladder = tuple(sorted({int(t) for t in timestep_ladder}))
-        T_train = self.model.q.num_timesteps
+        T_train = getattr(getattr(self.model, "q", None), "num_timesteps", None)
         for t in self.ladder:
-            if t < 1 or t > T_train:
+            if t < 1 or (T_train is not None and t > T_train):
                 raise ValueError(
                     f"timestep_ladder rung {t} out of range: must satisfy "
                     f"0 < t <= num_timesteps ({T_train}) of the trained model"
@@ -209,6 +221,9 @@ class LayoutService:
         self._counter_lock = threading.Lock()  # handlers run threaded
         self.request_timeout_s = float(request_timeout_s)
         self.max_queued_requests = int(max_queued_requests)
+        # models whose sampler takes per-row seeds coalesce requests; a zoo
+        # lane runs one request per run
+        self._per_row = bool(self.model.supports_per_row_keys)
 
         self.coalesce_window_ms = float(coalesce_window_ms)
         self._cv = threading.Condition()
@@ -252,7 +267,8 @@ class LayoutService:
             with self._cv:
                 take, rest, used = [], [], 0
                 for ln, p in self._queue:
-                    if ln == lane and used + len(p.seeds) <= self.B:
+                    if (ln == lane and used + len(p.seeds) <= self.B
+                            and (self._per_row or not take)):
                         take.append(p)
                         used += len(p.seeds)
                     else:
@@ -292,19 +308,25 @@ class LayoutService:
             conds.append(self._pad_cond(self.B - n_rows, guided, init_from_seq, has_weak))
             seeds.append(np.zeros(self.B - n_rows, np.uint32))
         cond = SamplerCond.cat(conds).to(self.device)
-        row_seeds = torch.as_tensor(
-            np.concatenate(seeds).astype(np.int64), device=self.device
-        )
+        if self._per_row:
+            rng = torch.as_tensor(np.concatenate(seeds).astype(np.int64), device=self.device)
+        else:
+            # one request per run: its seed keys the whole padded batch
+            rng = torch.Generator(device=self.device).manual_seed(pendings[0].seed)
+            if not init_from_seq:
+                cond = None  # unconditional
         t0 = time.perf_counter()
         ids = self.model.sample_ids(
-            row_seeds, self.B, cond=cond, sampling=self.sampling,
+            rng, self.B, cond=cond, sampling=self.sampling,
             num_timesteps_eval=t_eval, guidance_fn=self._guidance if guided else None,
+            state=self.state,
         )
         out = {k: v.cpu().numpy() for k, v in self.tokenizer.decode(ids).items()}
         sec = time.perf_counter() - t0
         self.runs += 1
-        T = self.model.q.num_timesteps
-        self.steps += len(timestep_ladder(T, t_eval, self.sampling.time_difference)[0])
+        if hasattr(self.model, "q"):
+            T = self.model.q.num_timesteps
+            self.steps += len(timestep_ladder(T, t_eval, self.sampling.time_difference)[0])
         off = 0
         for p in pendings:
             n = len(p.seeds)
@@ -397,6 +419,11 @@ class LayoutService:
                 seed = self._counter
         if task == "relation" and not relations:
             raise ValueError("task 'relation' requires a non-empty 'relations' list")
+        if task == "relation" and not self.model.supports_guidance:
+            raise ValueError(
+                f"model '{self.train_cfg.model.name}' does not support relation "
+                "guidance (diffusion-only, like the reference's CLG-LO)"
+            )
         seed32 = int(seed) & 0x7FFFFFFF
 
         has_weak = task == "refinement"
@@ -409,7 +436,7 @@ class LayoutService:
         t_eval = int(num_timesteps) if num_timesteps is not None else None
         lane = (t_eval, guided, bool(cond.init_from_seq), has_weak)
 
-        p = _Pending(cond, _row_seeds(seed32, B))
+        p = _Pending(cond, _row_seeds(seed32, B), seed32)
         with self._cv:
             if len(self._queue) >= self.max_queued_requests:
                 raise ServiceOverloaded(
@@ -460,6 +487,7 @@ class LayoutService:
             "timestep_ladder": list(self.ladder),
             "max_edges": self.max_edges,
             "coalesce_window_ms": self.coalesce_window_ms,
+            "coalescing": self._per_row,
             "program_runs": self.runs,
         }
 

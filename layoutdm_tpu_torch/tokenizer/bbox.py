@@ -130,16 +130,49 @@ class BboxTokenizer:
 def load_kmeans_centers(
     path: str, num_bins: int, keys: Tuple[str, ...] = VAR_NAMES
 ) -> np.ndarray:
-    """Per-coordinate cluster centers from an ``.npz`` with arrays named
-    ``{key}-{num_bins}``, sorted ascending.  The reference's pickled sklearn
-    objects are not read here yet."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz cluster centers are read by the port"
-        )
-    with np.load(path) as data:
-        rows = [
-            np.sort(np.asarray(data[f"{k}-{num_bins}"]).reshape(-1))
-            for k in keys
-        ]
+    """Per-coordinate cluster centers, sorted ascending (the reference sorts
+    them in place, `bbox_tokenizer.py:52-70`), from (a) an ``.npz`` with
+    arrays named ``{key}-{num_bins}`` or (b) the reference's pickle of
+    sklearn-like objects exposing ``cluster_centers_``, read without
+    sklearn (`_tolerant_unpickle`)."""
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            rows = [
+                np.sort(np.asarray(data[f"{k}-{num_bins}"]).reshape(-1))
+                for k in keys
+            ]
+    else:
+        models = _tolerant_unpickle(path)
+        rows = []
+        for k in keys:
+            m = models[f"{k}-{num_bins}"]
+            centers = (
+                m.cluster_centers_
+                if hasattr(m, "cluster_centers_")
+                else m.__dict__["cluster_centers_"]
+            )
+            rows.append(np.sort(np.asarray(centers).reshape(-1)))
     return np.stack(rows).astype(np.float32)
+
+
+def _tolerant_unpickle(path: str):
+    """Unpickle the reference's clustering weights without sklearn: the
+    reference pickles sklearn KMeans objects (`bbox_tokenizer.py:56-58`),
+    of which only ``cluster_centers_`` is needed, so a class that cannot be
+    imported becomes an attribute bucket during the load."""
+    import pickle
+
+    class _Bucket:
+        def __setstate__(self, state):
+            if isinstance(state, dict):
+                self.__dict__.update(state)
+
+    class _TolerantUnpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            try:
+                return super().find_class(module, name)
+            except (ImportError, AttributeError):
+                return type(name, (_Bucket,), {"__module__": module})
+
+    with open(path, "rb") as f:
+        return _TolerantUnpickler(f).load()

@@ -1,7 +1,10 @@
 """Training loop and entry point (port of ``layoutdm_tpu/train/loop.py``;
 reference `main.py:57-205`).
 
-    python -m layoutdm_tpu_torch.train.loop layoutdm <dataset> [k=v ...] [device=cuda|cpu]
+    python -m layoutdm_tpu_torch.train.loop <experiment> <dataset> [k=v ...] [device=cuda|cpu]
+
+``<experiment>``: ``layoutdm``, ``vqdiffusion``, ``maskgit``, ``blt``,
+``ruite``, ``autoreg`` (and their ``configs.EXPERIMENTS`` aliases).
 
 Per epoch: shuffled host batches -> tokenize -> one train step per batch on
 the device; the validation loss; the host-side LR schedule; best/last
@@ -190,7 +193,7 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
 
         if val_loss < best_val:
             best_val = val_loss
-            ckpt.save_params(model.net.state_dict(), job_dir, "best")
+            ckpt.save_params(model.net.state_dict(), job_dir, "best", state.lt_state)
         ckpt.save_train_state(state, job_dir, _generator_states(gen, rng_np))
         meta = {"epoch": epoch, "best_val": best_val,
                 "scheduler": scheduler_state(scheduler)}

@@ -4,7 +4,11 @@
 
 The JAX package's step is a pure jitted function over a param tree; here
 the state is a `TrainState` of the model, its ``torch.optim.AdamW`` and the
-``LtState``, updated in place.  The weight-decay mask becomes two parameter
+model's aux state, updated in place.  The model is any family of
+`factory.build_model` (``loss(tokens, state, generator, is_train)``), and
+its aux state an ``LtState`` (LayoutDM, VQDiffusion), a ``SeqLenState``
+(MaskGIT, BLT) or ``None`` (RUITE, the autoregressive model), as in the
+JAX `train/step.py:87-135`.  The weight-decay mask becomes two parameter
 groups.  Gradients are clipped as optax's ``clip_by_global_norm`` does:
 scaled by ``max_norm / norm`` only when ``norm > max_norm`` (torch's
 ``clip_grad_norm_`` adds 1e-6 to the norm).
@@ -17,8 +21,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
-
-from layoutdm_tpu_torch.models.diffusion.loss import LtState
 
 # modules whose parameters never decay (JAX `NO_DECAY_MODULES`): the norms,
 # including the Dense inside each AdaLayerNorm (`norm1.cond.linear`)
@@ -57,9 +59,9 @@ def make_optimizer(
 
 @dataclass
 class TrainState:
-    model: object  # models.layoutdm.LayoutDM
+    model: object  # a model of `factory.build_model`
     optimizer: torch.optim.AdamW
-    lt_state: LtState
+    lt_state: object  # the model's aux state (the JAX field name): LtState, SeqLenState or None
     grad_norm_clip: float = 1.0
     step: int = 0
 
@@ -95,7 +97,7 @@ def train_step(
     loss_fn: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """The summed losses' gradient, clipped, one AdamW update and the new
-    ``LtState``; returns the step's metrics as device tensors.
+    aux state; returns the step's metrics as device tensors.
     ``loss_fn(lt_state) -> (losses, new_lt_state)`` replaces the model's
     sampled training loss (tests pin t, x_t and dropout through it)."""
     model = state.model
@@ -114,7 +116,7 @@ def train_step(
 
 
 @torch.no_grad()
-def eval_loss(model, lt_state: LtState, tokens, generator: torch.Generator) -> torch.Tensor:
+def eval_loss(model, lt_state, tokens, generator: torch.Generator) -> torch.Tensor:
     """Validation loss: no dropout, no auxiliary loss (`main.py:271-294`)."""
     losses, _ = model.loss(tokens, lt_state, generator, is_train=False)
     return sum(losses.values())

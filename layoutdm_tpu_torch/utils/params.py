@@ -8,14 +8,21 @@ nested dict of numpy arrays (``cat_emb/embedding``, ``pos/elem_emb``,
 ``head/kernel`` ...) becomes `models.nn.CategoricalTransformer` keys.
 Dense kernels are stored (in, out) by flax and (out, in) by torch.
 
-A job directory holds ``config.json`` (the configs' ``to_dict``) and
-``params.pt`` (the denoiser's state dict), each written to a temporary
-name, fsynced and moved into place.  Reading the JAX package's msgpack
-checkpoints directly waits: the GPU host has no flax.
+A job directory holds ``config.json`` (the configs' ``to_dict``),
+``params.pt`` (the denoiser's state dict) and, from the trainer,
+``aux_state.pt`` (the model's aux state beside the best weights: the
+element-count histogram MaskGIT and BLT sample from, LayoutDM's Lt
+buffers), each written to a temporary name, fsynced and moved into place.
+
+`load_jax_job` reads a job of the JAX package's trainer (``config.json``,
+``{best,final}_model.msgpack``, ``aux_state.msgpack``) with the port's own
+msgpack reader (`utils.flax_msgpack`; the GPU host has no flax) and writes
+it as a port job.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -29,6 +36,8 @@ from layoutdm_tpu_torch import configs as _configs
 
 CONFIG_FILE = "config.json"
 PARAMS_FILE = "params.pt"
+FINAL_PARAMS_FILE = "final_params.pt"
+AUX_FILE = "aux_state.pt"
 
 # flax module names that differ from the port's attribute names
 _RENAME = {"AdaNormCond_0": "cond", "scale": "weight", "embedding": "weight"}
@@ -98,3 +107,63 @@ def load_job(job_dir: str):
         os.path.join(job_dir, PARAMS_FILE), map_location="cpu", weights_only=True
     )
     return cfg, sd
+
+
+def aux_to_dict(state) -> Dict[str, torch.Tensor]:
+    """A model's aux state (a dataclass of tensors, or ``None``) as CPU
+    tensors by field name."""
+    if state is None:
+        return {}
+    return {f.name: getattr(state, f.name).detach().to("cpu")
+            for f in dataclasses.fields(state)}
+
+
+def aux_from_dict(template, blob: Mapping[str, Any]):
+    """``blob`` as an aux state of ``template``'s type and device."""
+    if template is None:
+        return None
+    fields = {}
+    for f in dataclasses.fields(template):
+        ref = getattr(template, f.name)
+        fields[f.name] = torch.as_tensor(np.asarray(blob[f.name])).to(ref.device, ref.dtype)
+    return type(template)(**fields)
+
+
+def save_aux_state(state, job_dir: str) -> None:
+    save_torch(aux_to_dict(state), os.path.join(job_dir, AUX_FILE))
+
+
+def load_aux_state(template, job_dir: str):
+    """The job's aux state in ``template``'s type, or ``template`` when the
+    job has none (weights imported without one)."""
+    path = os.path.join(job_dir, AUX_FILE)
+    if template is None or not os.path.exists(path):
+        return template
+    return aux_from_dict(template, torch.load(path, map_location="cpu", weights_only=True))
+
+
+def load_jax_job(job_dir: str, out_dir: str):
+    """A job of the JAX package's trainer, written to ``out_dir`` as a port
+    job: its ``config.json``; ``best_model.msgpack`` (and
+    ``final_model.msgpack`` where there is one) through `params_from_flax`
+    as ``params.pt`` (``final_params.pt``); its ``aux_state.msgpack`` as
+    ``aux_state.pt``.  Returns (TrainConfig, best state dict, aux state as
+    arrays by field name, or ``None``)."""
+    from layoutdm_tpu_torch.utils.flax_msgpack import read_flax_msgpack
+
+    with open(os.path.join(job_dir, CONFIG_FILE)) as f:
+        cfg = _configs.train_config_from_dict(json.load(f))
+    sd = params_from_flax(read_flax_msgpack(os.path.join(job_dir, "best_model.msgpack")))
+    save_job(cfg, sd, out_dir)
+    final = os.path.join(job_dir, "final_model.msgpack")
+    if os.path.exists(final):
+        save_params(params_from_flax(read_flax_msgpack(final)),
+                    os.path.join(out_dir, FINAL_PARAMS_FILE))
+    aux_path = os.path.join(job_dir, "aux_state.msgpack")
+    aux = read_flax_msgpack(aux_path) if os.path.exists(aux_path) else None
+    if not isinstance(aux, Mapping):
+        aux = None  # the zoo's dummy state, a scalar
+    if aux is not None:
+        save_torch({k: torch.as_tensor(np.asarray(v)) for k, v in aux.items()},
+                   os.path.join(out_dir, AUX_FILE))
+    return cfg, sd, aux

@@ -152,7 +152,7 @@ def test_sample_mask_matches_jax_with_injected_scores():
 
 
 @pytest.mark.parametrize("what", ["package", "chip_smoke", "profile_chain",
-                                  "compare_kernels"])
+                                  "compare_kernels", "compare_end_to_end"])
 def test_port_imports_no_jax(what):
     """Every module of the port, and each of the port's scripts (imported,
     not run), imports in a fresh interpreter without loading jax, flax,

@@ -150,6 +150,6 @@ def test_build_tokenizer_matches_jax_linear_and_cached_kmeans(tmp_path):
 
 def test_build_model_names_later_ports():
     cfg = tconfigs.build_train_config("layoutdm", "rico25", ["data.bbox_quantization=linear"])
-    cfg.model.name = "maskgit"
+    cfg.model.name = "bart"
     with pytest.raises(KeyError, match="not ported yet"):
         build_model(cfg, device="cpu")

@@ -274,11 +274,35 @@ def test_embedding_dropout_matches_flax_under_the_same_mask(pair):
 
 
 def test_generator_dropout_and_attention_dropout_guard():
-    _, _, tm = layoutdm_pair(seed=2, backbone=dict(dropout=0.1))
-    ids, t = torch.zeros((2, tm.seq_len), dtype=torch.long), torch.zeros(2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.net(ids, t, Dropout(torch.Generator().manual_seed(0)))
-    tm.net(ids, t)  # evaluation needs no probability tensor
+    """Attention-probability dropout (backbone.dropout > 0 in training)
+    runs on the plain path: under flax's masks at every dropout site (the
+    probabilities (B, H, S, S) among them) the logits equal the JAX
+    package's; masks drawn from a generator keep flax's rule."""
+    jm, params, tm = layoutdm_pair(seed=2, backbone=dict(dropout=0.1))
+    rs = np.random.RandomState(12)
+    ids = rs.randint(0, tm.num_classes, (2, tm.seq_len))
+    t = rs.randint(0, NUM_TIMESTEPS, 2)
+    masks = []
+
+    def intercept(next_fun, args, kwargs, context):
+        mod = context.module
+        if isinstance(mod, fnn.Dropout) and context.method_name == "__call__" and mod.rate > 0:
+            x = args[0]
+            keep = rs.rand(*x.shape) < 1.0 - mod.rate
+            masks.append(keep)
+            return jnp.where(keep, x / (1.0 - mod.rate), 0.0).astype(x.dtype)
+        return next_fun(*args, **kwargs)
+
+    with fnn.intercept_methods(intercept):
+        want = jm.net.apply({"params": params}, jnp.asarray(ids), jnp.asarray(t),
+                            deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)})
+    assert masks[1].shape == (2, 2, tm.seq_len, tm.seq_len)
+    got = tm.net(torch.as_tensor(ids), torch.as_tensor(t), Dropout(masks=masks))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4)
+    drawn = tm.net(torch.as_tensor(ids), torch.as_tensor(t),
+                   Dropout(torch.Generator().manual_seed(0)))
+    assert torch.isfinite(drawn).all()
+    tm.net(torch.as_tensor(ids), torch.as_tensor(t))  # evaluation needs no probability tensor
     d = Dropout(torch.Generator().manual_seed(0))
     x = torch.ones(1000)
     y = d(x, 0.25)
