@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Drives the port's serving and training paths (``layoutdm_tpu_torch``), the
-training and sampling of its baseline zoo (MaskGIT, BLT, RUITE, the
-autoregressive LayoutTransformer, VQDiffusion), its four denoiser paths (default: K1; fused: K4 + K3; v2: K5; smajor: K6),
+training and sampling of every other model family (MaskGIT, BLT, RUITE, the
+autoregressive LayoutTransformer, VQDiffusion, BART, DiffusionLM,
+BitDiffusion, the aggregated LayoutDM), its four denoiser paths (default:
+K1; fused: K4 + K3; v2: K5; smajor: K6),
 relation-guided requests and the batch sampling CLI at the flagship
 LayoutDM width (Rico25: vocab 155, 125 tokens, d_model 464, 8 heads of 58,
 FFN 1856, 4 layers; random weights from a seed), then the evaluation path
@@ -46,16 +48,22 @@ no extractor weights are in the repo), and checks them:
                 (b) bfloat16 train steps at B=1024: samples/s, peak memory,
                 K1/K2 launches = layers x steps, and the same steps with the
                 plain attention; (c) 20 steps on one batch lower its loss;
-5a. zoo         the baseline zoo (`phase_zoo`): MaskGIT, BLT, RUITE and the
-                autoregressive LayoutTransformer at d_model 512, 8 heads,
-                FFN 2048, 4 layers, VQDiffusion at 464 / 8 / 1856, Rico25,
-                bf16: train steps at B=256 (samples/s), sampling at B=256
-                (layouts/s; VQDiffusion T=100 with K1 launched layers x
-                steps, the zoo's masked attention launching no kernel),
-                MaskGIT under fused_ffn with K3 at (512, 2048, relu) held
-                to its plain version and timed, the weights through a
-                reference state dict and back, and in float32 the
-                autoregressive cached decode against the recompute decode;
+5a. zoo         every other family (`phase_zoo`): MaskGIT, BLT, RUITE and
+                the autoregressive LayoutTransformer at d_model 512, 8
+                heads, FFN 2048, 4 layers, VQDiffusion, DiffusionLM and
+                BitDiffusion at 464 / 8 / 1856, BART at 336 / 8 / 1344, the
+                aggregated LayoutDM at 432 / 8 / 1728, Rico25, bf16: train
+                steps at B=256 (samples/s), sampling at B=256 (layouts/s;
+                the diffusion families T=100 with K1 launched layers x
+                steps, BART's encoder layers x 1, masked attention
+                launching no kernel), MaskGIT under fused_ffn with K3 at
+                (512, 2048, relu) held to its plain version and timed, the
+                weights through a reference state dict and back, in
+                float32 the autoregressive and BART cached decodes against
+                the recompute decodes, the four new families on the fused,
+                V2 and S-major paths against the default, and K1, K3-K6 at
+                BART's and the aggregated model's shapes against their
+                plain versions, K1, K3, K4 timed;
 5b. fidnet_train the FIDNet trainer (`eval.fidnet_train`): FIDNetV3 on the
                 synthetic dataset at S = 25, batch 64, 500 steps; the
                 validation loss falls, the checkpoint exists, steps/s;
@@ -798,6 +806,28 @@ def phase_path_denoiser(path: str, device="cuda", batch=8, cfg=None) -> dict:
     return out
 
 
+def check_bwd(what: str, qkv: torch.Tensor, do: torch.Tensor, H: int, tol: float,
+              scale: float = 0.0) -> tuple:
+    """K2 against its plain version on the same slab and cotangent ->
+    (max abs err, its share of the largest gradient), which must be at
+    most ``tol``."""
+    from layoutdm_tpu_torch.ops.attention import (
+        attention_qkv_bwd_reference,
+        fused_attention_qkv_bwd,
+    )
+
+    got = fused_attention_qkv_bwd(qkv, do, H, scale=scale)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    want = attention_qkv_bwd_reference(qkv, do, H, scale=scale).float()
+    err = (got.float() - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    if not (got.shape == want.shape and np.isfinite(err) and rel <= tol):
+        raise AssertionError(f"{what}: max abs err {err} ({rel} of the largest "
+                             f"gradient) > {tol}")
+    return err, rel
+
+
 def phase_train_kernel(device="cuda") -> dict:
     from layoutdm_tpu_torch.ops.attention import (
         attention_qkv_bwd_reference,
@@ -827,17 +857,7 @@ def phase_train_kernel(device="cuda") -> dict:
     errs, rel = {}, {}
     for name, B, S, H, hd, dtype, scale, tol in cases:
         qkv, do = inputs(B, S, H, hd, dtype)
-        got = fused_attention_qkv_bwd(qkv, do, H, scale=scale)
-        torch.cuda.synchronize()
-        want = attention_qkv_bwd_reference(qkv, do, H, scale=scale).float()
-        err = (got.float() - want).abs().max().item()
-        rel[name] = err / want.abs().max().item()
-        if not (got.shape == want.shape and np.isfinite(err) and rel[name] <= tol):
-            raise AssertionError(
-                f"K2 case {name}: max abs err {err} ({rel[name]} of the largest "
-                f"gradient) > {tol}"
-            )
-        errs[name] = err
+        errs[name], rel[name] = check_bwd(f"K2 case {name}", qkv, do, H, tol, scale)
 
     import torch.nn.functional as F
 
@@ -1052,23 +1072,43 @@ def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
 # the baseline zoo of the zoo phase: its experiments, and the decode steps of
 # the iterative ones (BLT decodes in three attribute groups: 9, not 10);
 # VQDiffusion runs its trained T
-ZOO_FAMILIES = ("maskgit", "blt", "ruite", "autoreg", "vqdiffusion")
+ZOO_FAMILIES = ("maskgit", "blt", "ruite", "autoreg", "vqdiffusion", "bart", "diffusionlm",
+                "bitdiffusion", "aggregated")
 ZOO_STEPS = {"maskgit": 10, "blt": 9}
+# families whose reverse chain runs the mask-free denoiser once a step (K1
+# launched layers x steps); BART's encoder runs once a decode (layers x 1)
+CHAIN_FAMILIES = ("vqdiffusion", "diffusionlm", "bitdiffusion", "aggregated")
+CONTINUOUS = ("diffusionlm", "bitdiffusion")
+# K1 launches a layer and train step where training runs the kernels
+# (dropout 0.0, no mask): one forward, and BitDiffusion's self-condition
+# pass; K2 one a layer and step
+TRAIN_K1 = {"vqdiffusion": 1, "aggregated": 1, "diffusionlm": 1, "bitdiffusion": 2}
 # logits of a model against the same weights through a reference state dict
 # written and imported: the same weights on the same kernels
 ZOO_IMPORT_TOL = 1e-6
+# the kernels' shapes on the new families' paths: (name, S, heads, head
+# width, FFN width, whether training takes K2 there) at B = ZOO_KERNEL_BATCH;
+# BART trains at attention dropout 0.1, on the plain path
+ZOO_KERNEL_SHAPES = (("bart_s126_d336", 126, 8, 42, 1344, False),
+                     ("aggregated_s25_d432", 25, 8, 54, 1728, True))
+ZOO_KERNEL_BATCH = 256
 
 
 def zoo_config(experiment: str, dtype: str):
     """A zoo experiment on Rico25 (25 elements) at the widths of its
     overlay: the zoo at the `BackboneConfig` defaults (d_model 512, 8 heads,
-    FFN 2048, 4 layers, dropout 0.1), VQDiffusion at the flagship's shrunk
-    464 / 8 / 1856; linear box quantization, as `flagship_config`."""
+    FFN 2048, 4 layers, dropout 0.1; BART shrinks them to 336 / 8 / 1344),
+    VQDiffusion, DiffusionLM and BitDiffusion at the flagship's shrunk
+    464 / 8 / 1856, and ``aggregated`` (LayoutDM with
+    ``transformer_type=aggregated``) at 432 / 8 / 1728; linear box
+    quantization, as `flagship_config`."""
     from layoutdm_tpu_torch.configs import build_train_config
 
-    return build_train_config(
-        experiment, "rico25", ["data.bbox_quantization=linear", f"model.dtype={dtype}"],
-    )
+    over = ["data.bbox_quantization=linear", f"model.dtype={dtype}"]
+    if experiment == "aggregated":
+        experiment = "layoutdm"
+        over.append("model.transformer_type=aggregated")
+    return build_train_config(experiment, "rico25", over)
 
 
 def zoo_layouts(rs: np.random.RandomState, B: int, cfg) -> dict:
@@ -1081,7 +1121,8 @@ def zoo_layouts(rs: np.random.RandomState, B: int, cfg) -> dict:
 
 def check_decoded(what: str, out: dict, B: int, cfg) -> int:
     """Decoded layouts of the config's shape: finite boxes in [0, 1] and
-    labels in range wherever an element is; returns the element count."""
+    labels in range wherever an element is, and at least one element;
+    returns the element count."""
     S, C = cfg.dataset.max_seq_length, cfg.dataset.num_categories
     bbox, label, mask = out["bbox"], out["label"], out["mask"]
     if not (bbox.shape == (B, S, 4) and label.shape == (B, S) and mask.shape == (B, S)):
@@ -1105,23 +1146,95 @@ def _no_launches(what: str) -> dict:
     return got
 
 
+def family_forward(family: str, model, rs: np.random.RandomState, n: int = 8):
+    """``f(net)`` -> the family's denoiser outputs on fixed random inputs:
+    BART's encoder memory, then its logits; a continuous model's x0
+    prediction at random log-SNRs; a token model's logits (at t = 7 for
+    the diffusion models).  The first output's forward runs the encoder's
+    kernels once a layer."""
+    dev = model.device
+    if family in CONTINUOUS:
+        x = torch.as_tensor(rs.randn(n, model.seq_len, model.num_channel).astype(np.float32),
+                            device=dev)
+        t = torch.as_tensor(rs.uniform(-5, 5, n).astype(np.float32), device=dev)
+        return lambda net: (net(x, t),)
+    ids = torch.as_tensor(rs.randint(0, model.num_classes, (n, model.seq_len)), device=dev)
+    if family == "bart":
+        return lambda net: (net(ids, None), net(ids, ids[:, :-1]))
+    t = (torch.full((n,), min(7, model.q.num_timesteps - 1), device=dev)
+         if family in CHAIN_FAMILIES else None)
+    return lambda net: (net(ids, t),)
+
+
+def family_reference_roundtrip(family: str, model, state, work_dir: str) -> dict:
+    """The model's weights written with ``torch.save`` under the reference's
+    key names and read back through the port's converter; returns the
+    imported state dict."""
+    from layoutdm_tpu_torch.utils.torch_port import (
+        continuous_to_reference_state_dict,
+        convert_categorical_encdec_transformer,
+        convert_categorical_transformer,
+        convert_continuous_transformer,
+        encdec_to_reference_state_dict,
+        import_layoutdm_checkpoint,
+        load_torch_state_dict,
+        to_reference_state_dict,
+    )
+
+    bb = model.backbone_cfg
+    layers, tt, sd = bb.num_layers, bb.timestep_type, model.net.state_dict()
+    path = os.path.join(work_dir, f"{family}_best_model.pt")
+    if family == "bart":
+        torch.save(encdec_to_reference_state_dict(sd, layers, bb.d_model, "model.module."), path)
+        return convert_categorical_encdec_transformer(load_torch_state_dict(path), layers,
+                                                      bb.d_model, "model.module.")
+    if family in CONTINUOUS:
+        prefix = "model.module.transformer."
+        torch.save(continuous_to_reference_state_dict(sd, layers, tt, prefix), path)
+        return convert_continuous_transformer(load_torch_state_dict(path), layers, tt, prefix)
+    if family == "vqdiffusion":
+        ref = to_reference_state_dict(sd, layers, tt, "model.module.transformer.")
+        ref["model.module.Lt_history"] = state.lt_state.history.cpu()
+        ref["model.module.Lt_count"] = state.lt_state.count.cpu()
+        torch.save({"state_dict": ref}, path)
+        imported, lt = import_layoutdm_checkpoint(path, layers, tt)
+        if not torch.equal(lt.count, state.lt_state.count.cpu()):
+            raise AssertionError("vqdiffusion: imported Lt counts differ")
+        return imported
+    torch.save(to_reference_state_dict(sd, layers, tt, "model.module."), path)
+    return convert_categorical_transformer(load_torch_state_dict(path), layers, tt,
+                                           "model.module.")
+
+
 def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4,
-              cfgs=None, smi="") -> dict:
-    """The baseline zoo on the card: MaskGIT, BLT, RUITE and the
-    autoregressive LayoutTransformer at the `BackboneConfig` defaults and
-    VQDiffusion at 464 / 8 / 1856, Rico25 shapes, bfloat16, random weights
-    from a seed.  For each family: ``warmup`` + ``steps`` train steps at
-    ``batch`` (finite losses; samples/s), sampling at ``batch`` (MaskGIT
-    T=10, BLT T=9, RUITE one refinement pass, the autoregressive model with
-    the KV cache, VQDiffusion T=100 on the default path, K1 launched layers
-    x steps; valid layouts; layouts/s), and its weights written under the
-    reference's key names with ``torch.save`` and imported again (logits
-    within ZOO_IMPORT_TOL).  Masked attention (all of the zoo) launches no
-    kernel.  Then, in float32, the cached decode against the recompute
-    decode on ``rows`` rows; and MaskGIT sampled under ``fused_ffn`` (K3
-    launched layers x steps), K3 held to its plain version at the shapes
-    that run gives it (512, 2048, relu) and timed beside the unfused FFN.
-    ``cfgs`` maps a family to a config (small ones on the CPU)."""
+              cfgs=None, smi="", kernel_shapes=True) -> dict:
+    """Every family besides the flagship on the card: MaskGIT, BLT, RUITE
+    and the autoregressive LayoutTransformer at the `BackboneConfig`
+    defaults, VQDiffusion, DiffusionLM and BitDiffusion at 464 / 8 / 1856,
+    BART at 336 / 8 / 1344 and the aggregated LayoutDM at 432 / 8 / 1728,
+    Rico25 shapes, bfloat16, random weights from a seed.  For each family:
+    ``warmup`` + ``steps`` train steps at ``batch`` (finite losses;
+    samples/s; K1 and K2 launched layers x steps where training is
+    mask-free at dropout 0), sampling at ``batch`` (MaskGIT T=10, BLT T=9,
+    RUITE one refinement pass, the autoregressive model and BART with the
+    KV cache, the diffusion families T=100 on the default path with K1
+    launched layers x steps, BART's encoder layers x 1; valid layouts;
+    layouts/s; DiffusionLM and BitDiffusion inpaint the partial task and
+    must give back its held tokens), and its weights written under the
+    reference's key names with ``torch.save`` and imported through its
+    converter (all but the aggregated LayoutDM, which has none; every
+    parameter assigned, no key left over; logits within ZOO_IMPORT_TOL).
+    Masked attention (the zoo, BART's decoder) launches no kernel.  Then,
+    in float32, the cached decodes of the autoregressive model and BART
+    against their recompute decodes on ``rows`` rows; MaskGIT sampled under
+    ``fused_ffn`` (K3 launched layers x steps), K3 held to its plain
+    version at that width (512, 2048, relu) and timed; BART, DiffusionLM,
+    BitDiffusion and the aggregated LayoutDM on the fused, V2 and S-major
+    paths against the default path (`zoo_paths`); and K1, K3, K4, K5, K6
+    at BART's and the aggregated widths against their plain versions,
+    K1, K3 and K4 timed (`zoo_kernel_shapes`).  ``cfgs`` maps a family to
+    a config (small ones on the CPU; ``autoreg32`` / ``bart32`` for the
+    float32 decodes)."""
     import torch.nn.functional as F
 
     from layoutdm_tpu_torch.configs import SamplingConfig
@@ -1129,12 +1242,6 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
     from layoutdm_tpu_torch.ops.ffn import fused_ln_ffn_residual, ln_ffn_residual_reference
     from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
     from layoutdm_tpu_torch.train.step import init_train_state, make_optimizer, train_step
-    from layoutdm_tpu_torch.utils.torch_port import (
-        convert_categorical_transformer,
-        import_layoutdm_checkpoint,
-        load_torch_state_dict,
-        to_reference_state_dict,
-    )
 
     cfgs = cfgs or {}
     rs = np.random.RandomState(30)
@@ -1150,9 +1257,9 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
         model = build_model(cfg, tok, device, generator=torch.Generator().manual_seed(40 + i),
                             **path_switches("default"))
         bb, layers = model.backbone_cfg, model.backbone_cfg.num_layers
-        res = {"dtype": cfg.model.dtype, "d_model": bb.d_model, "nhead": bb.nhead, "dim_feedforward": bb.dim_feedforward,
-               "num_layers": layers, "dropout": bb.dropout, "tokens": model.seq_len,
-               "vocab": model.num_classes}
+        res = {"dtype": cfg.model.dtype, "d_model": bb.d_model, "nhead": bb.nhead,
+               "dim_feedforward": bb.dim_feedforward, "num_layers": layers,
+               "dropout": bb.dropout, "tokens": model.seq_len, "vocab": model.num_classes}
         gen = torch.Generator(device=device).manual_seed(50 + i)
 
         # 1. training
@@ -1171,11 +1278,12 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
         losses = [m["loss"].item() for m in metrics]
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{family}: non-finite train losses {losses}")
-        if family == "vqdiffusion":  # dropout 0.0, no mask: K1 forward, K2 backward
+        if family in TRAIN_K1:  # dropout 0.0, no mask: K1 forward, K2 backward
             got = launch_counts()
             n = layers * (warmup + steps)
-            if not (got["K1"] == got["K2"] == n):
-                raise AssertionError(f"{family} train launches {got}, K1 = K2 = {n} wanted")
+            if not (got["K1"] == TRAIN_K1[family] * n and got["K2"] == n):
+                raise AssertionError(f"{family} train launches {got}, K1 = "
+                                     f"{TRAIN_K1[family] * n}, K2 = {n} wanted")
             train_launches = got
         else:
             train_launches = _no_launches(f"{family} train")
@@ -1185,8 +1293,16 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
         # 2. sampling
         T = ZOO_STEPS.get(family)
         sampling = SamplingConfig(name="random", num_timesteps=T)
-        if family == "vqdiffusion":
+        if family in ("vqdiffusion", "aggregated"):
             run = lambda: model.sample(torch.arange(batch, dtype=torch.int64), batch)  # noqa: E731
+        elif family in CONTINUOUS:
+            # inpainting (the partial task): whole elements held, so the
+            # decode must give back their tokens, rounded through the codec
+            lay = zoo_layouts(rs, batch, cfg)
+            cond = to_sampler_cond(
+                get_cond(lay, tok, "partial", model_type=family,
+                         generator=torch.Generator().manual_seed(0)), tok, sampling).to(device)
+            run = lambda: model.sample_ids(gen, batch, cond=cond)  # noqa: E731
         elif family == "ruite":
             lay = zoo_layouts(rs, batch, cfg)
             lay["bbox"] = lay.get("bbox_orig", lay["bbox"])
@@ -1198,24 +1314,33 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
             run = lambda: model.sample(gen, batch, sampling=sampling,  # noqa: E731
                                        state=state.lt_state)
         model.net.eval()
-        run()  # warm-up (and, for VQDiffusion, the kernels' first launches)
+        run()  # warm-up (and the kernels' first launches)
         sync()
         reset_launches()
         t0 = time.perf_counter()
         layouts = run()
         sync()
         sec = time.perf_counter() - t0
-        if family == "vqdiffusion":
-            sample_launches = check_path_launches(f"{family} chain", "default",
-                                                  layers * model.q.num_timesteps)
+        if family in CHAIN_FAMILIES:
+            T = model.q.num_timesteps if hasattr(model, "q") else model.num_timesteps
+            sample_launches = check_path_launches(f"{family} chain", "default", layers * T)
+        elif family == "bart":  # the encoder once; the decoder is masked
+            sample_launches = check_path_launches("bart encoder", "default", layers)
         else:
             sample_launches = _no_launches(f"{family} sampling")
-        if family == "vqdiffusion":
-            T = model.q.num_timesteps
-        res["sample"] = {"steps": T or (model.gen_len if family == "autoreg" else 1),
-                         "seconds": sec, "layouts_per_s": batch / sec,
-                         "elements": check_decoded(f"{family} sampling", layouts, batch, cfg),
+        if family in CONTINUOUS:
+            ids, layouts = layouts, model.tokenizer.decode(layouts)
+            held = cond.strong_mask
+            kept = model.con2dis(model.dis2con(cond.seq.long())[0])
+            if not torch.equal(ids[held], kept[held]):
+                raise AssertionError(f"{family} inpainting: {int((ids != kept)[held].sum())} "
+                                     f"of {int(held.sum())} held tokens not given back")
+        elements = check_decoded(f"{family} sampling", layouts, batch, cfg)
+        res["sample"] = {"steps": T or (model.gen_len if family in ("autoreg", "bart") else 1),
+                         "seconds": sec, "layouts_per_s": batch / sec, "elements": elements,
                          "launches": sample_launches}
+        if family in CONTINUOUS:
+            res["sample"]["task"] = "partial"
 
         # 3. MaskGIT again under fused_ffn: K3 on the FFN of every step
         if family == "maskgit":
@@ -1266,48 +1391,199 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
                 }
             del fused, x, got
 
-        # 4. the weights under the reference's key names, written and imported
-        tt = bb.timestep_type
-        prefix = "model.module.transformer." if family == "vqdiffusion" else "model.module."
-        ref = to_reference_state_dict(model.net.state_dict(), layers, tt, prefix)
-        path = os.path.join(work_dir, f"{family}_best_model.pt")
-        if family == "vqdiffusion":
-            ref["model.module.Lt_history"] = state.lt_state.history.cpu()
-            ref["model.module.Lt_count"] = state.lt_state.count.cpu()
-            torch.save({"state_dict": ref}, path)
-            sd, lt = import_layoutdm_checkpoint(path, layers, tt)
-            if not torch.equal(lt.count, state.lt_state.count.cpu()):
-                raise AssertionError("vqdiffusion: imported Lt counts differ")
-        else:
-            torch.save(ref, path)
-            sd = convert_categorical_transformer(load_torch_state_dict(path), layers, tt, prefix)
-        other = build_model(cfg, tok, device, **path_switches("default"))
-        other.net.load_state_dict(sd)
-        ids = torch.as_tensor(rs.randint(0, model.num_classes, (8, model.seq_len)), device=device)
-        t = torch.full((8,), 7, device=device) if family == "vqdiffusion" else None
-        with torch.inference_mode():
-            err = (other.net(ids, t) - model.net(ids, t)).abs().max().item()
-        if not err <= ZOO_IMPORT_TOL:
-            raise AssertionError(f"{family}: imported reference weights, logits err {err}")
-        res["reference_import_max_abs_err"] = err
+        # 4. the weights under the reference's key names, written and
+        # imported (no reference converter covers the aggregated denoiser,
+        # in the JAX package either)
+        if family != "aggregated":
+            sd = family_reference_roundtrip(family, model, state, work_dir)
+            other = build_model(cfg, tok, device, **path_switches("default"))
+            other.net.load_state_dict(sd)  # strict: every parameter, no key left over
+            forward = family_forward(family, model, rs)
+            with torch.inference_mode():
+                got, want = forward(other.net), forward(model.net)
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            if not (err <= ZOO_IMPORT_TOL and all(torch.isfinite(g).all() for g in got)):
+                raise AssertionError(f"{family}: imported reference weights, logits err {err}")
+            res["reference_import_max_abs_err"] = err
+            del other
         out["families"][family] = res
-        del model, other, state, batches, layouts
+        del model, state, batches, layouts
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
 
-    # 2b. float32: the cached decode against the recompute decode
-    cfg = cfgs.get("autoreg32") or zoo_config("autoreg", "float32")
-    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(70),
-                        **path_switches("default"))
-    sampling = SamplingConfig(name="random")
-    a = model.sample_ids(torch.Generator(device=device).manual_seed(71), rows, sampling=sampling)
-    b = model.sample_ids(torch.Generator(device=device).manual_seed(71), rows, sampling=sampling,
-                         use_cache=False)
-    if not torch.equal(a, b):
-        raise AssertionError(f"autoreg: cached decode differs from recompute on "
-                             f"{int((a != b).any(dim=1).sum())} of {rows} rows")
-    out["autoreg_cached_equals_recompute_rows"] = rows
+    # 2b. float32: the cached decodes against the recompute decodes
+    for family in ("autoreg", "bart"):
+        cfg = cfgs.get(f"{family}32") or zoo_config(family, "float32")
+        model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(70),
+                            **path_switches("default"))
+        sampling = SamplingConfig(name="random")
+        a = model.sample_ids(torch.Generator(device=device).manual_seed(71), rows,
+                             sampling=sampling)
+        b = model.sample_ids(torch.Generator(device=device).manual_seed(71), rows,
+                             sampling=sampling, use_cache=False)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{family}: cached decode differs from recompute on "
+                                 f"{int((a != b).any(dim=1).sum())} of {rows} rows")
+        out[f"{family}_cached_equals_recompute_rows"] = rows
+        del model
+    out["paths"] = zoo_paths(device, cfgs)
+    if kernel_shapes:
+        out["kernel_shapes"] = zoo_kernel_shapes(device)
     emit(out)
+    return out
+
+
+def zoo_paths(device="cuda", cfgs=None, batch=8) -> dict:
+    """BART, DiffusionLM, BitDiffusion and the aggregated LayoutDM on the
+    fused (K4 + K3), V2 (K5) and S-major (K6) paths against the default
+    path (K1), float32, same weights: outputs within DENOISER_TOL (as
+    `phase_path_denoiser`), the path's kernels launched once a layer on the
+    encoder's forward, no other forward kernel."""
+    from layoutdm_tpu_torch.factory import build_model
+
+    cfgs = cfgs or {}
+    res = {}
+    for k, family in enumerate(("bart", "diffusionlm", "bitdiffusion", "aggregated")):
+        cfg = cfgs.get(f"{family}32") or zoo_config(family, "float32")
+        default = build_model(cfg, device=device, generator=torch.Generator().manual_seed(80 + k),
+                              **path_switches("default"))
+        forward = family_forward(family, default, np.random.RandomState(81 + k), batch)
+        layers = default.backbone_cfg.num_layers
+        with torch.inference_mode():
+            want = forward(default.net)
+            res[family] = {}
+            for path in ("fused", "v2", "smajor"):
+                model = build_model(cfg, device=device, **path_switches(path))
+                model.net.load_state_dict(default.net.state_dict())
+                reset_launches()
+                got = forward(model.net)
+                if family == "bart":
+                    # the encoder runs twice (the memory, then the logits);
+                    # under fused_ffn the decoder's full-sequence FFN takes K3
+                    launches = {k: v for k, v in launch_counts().items() if k != "K2"}
+                    want_l = {k: 2 * layers if k in PATH_KERNELS[path] else 0 for k in launches}
+                    if path == "fused":
+                        want_l["K3"] = 3 * layers
+                    if launches != want_l:
+                        raise AssertionError(f"bart {path}: launches {launches} != {want_l}")
+                else:
+                    launches = check_path_launches(f"{family} {path}", path, layers)
+                err = max((g - w).abs().max().item() for g, w in zip(got, want))
+                if not (err <= DENOISER_TOL and all(torch.isfinite(g).all() for g in got)):
+                    raise AssertionError(f"{family} {path}: max abs err {err} against default")
+                res[family][path] = {"path": model.denoiser_path, "max_abs_err": err,
+                                     "launches": launches}
+                del model
+        del default
+    return res
+
+
+def zoo_kernel_shapes(device="cuda", batch=ZOO_KERNEL_BATCH) -> dict:
+    """K1, K4, K5, K6 (attention) and K3 (LN-FFN-residual) at BART's (S 126,
+    8 heads of 42, FFN 1344) and the aggregated LayoutDM's (S 25, 8 heads of
+    54, FFN 1728) shapes against their plain versions, float32 and
+    bfloat16, at the tolerances of their own phases, and K2 (the attention
+    backward) where the family trains through it; K1, K3 and K4 timed in
+    bfloat16 beside the plain version, the library call (SDPA for K1, the
+    unfused path for K3 and K4) and the bound."""
+    import torch.nn.functional as F
+
+    from layoutdm_tpu_torch.ops.attention import (
+        attention_block_reference,
+        attention_qkv_reference,
+        attention_qkv_smajor_reference,
+        fused_attention_block,
+        fused_attention_qkv,
+        fused_attention_qkv_smajor,
+    )
+    from layoutdm_tpu_torch.ops.attention_blockdiag import (
+        blockdiag_attention,
+        blockdiag_attention_reference,
+        padded_head_dim,
+    )
+    from layoutdm_tpu_torch.ops.ffn import fused_ln_ffn_residual, ln_ffn_residual_reference
+
+    g = torch.Generator().manual_seed(90)
+    timed = torch.device(device).type == "cuda"
+    out = {}
+    for name, S, H, hd, Fd, trains_k2 in ZOO_KERNEL_SHAPES:
+        B, D = batch, H * hd
+        hp = padded_head_dim(hd)
+        errs, times = {}, {}
+        for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            qkv = _randn(g, (B, S, 3 * D)).to(device, dt)
+            errs[f"K1_{dn}"] = check_attention(f"K1 {name} {dn}", fused_attention_qkv(qkv, H),
+                                               attention_qkv_reference(qkv, H))
+            if trains_k2:
+                do = _randn(g, (B, S, D)).to(device, dt)
+                errs[f"K2_{dn}"], _ = check_bwd(
+                    f"K2 {name} {dn}", qkv, do, H,
+                    BWD_F32_TOL if dt == torch.float32 else BWD_BF16_TOL)
+                del do
+            qkv_sb = qkv.transpose(0, 1).contiguous()
+            bias = _randn(g, (3 * D,), 0.5).to(device, dt)
+            errs[f"K6_{dn}"] = check_attention(
+                f"K6 {name} {dn}", fused_attention_qkv_smajor(qkv_sb, bias, H),
+                attention_qkv_smajor_reference(qkv_sb, bias, H))
+            pad = padded_slab(g, B, S, H, hd, hp, dt, device)
+            errs[f"K5_{dn}"] = check_attention(
+                f"K5 {name} {dn}", blockdiag_attention(pad, H, hp, hd ** -0.5),
+                blockdiag_attention_reference(pad, H, hp, hd ** -0.5))
+            x = _randn(g, (B, S, D), 0.5).to(device, dt)
+            pb = {"w_qkv": _randn(g, (3 * D, D), D ** -0.5), "b_qkv": _randn(g, (3 * D,), 0.1),
+                  "w_out": _randn(g, (D, D), D ** -0.5), "b_out": _randn(g, (D,), 0.1)}
+            pb = {k: v.to(device, dt) for k, v in pb.items()}
+            got = fused_attention_block(x, **pb, num_heads=H)
+            want = attention_block_reference(x, **pb, num_heads=H)
+            errs[f"K4_{dn}"] = _check_fused(f"K4 {name} {dn}", got, want)
+            if dt == torch.bfloat16 and attention_errors(got, want)[1] > ATTN_BF16_MEAN_REL:
+                raise AssertionError(f"K4 {name}: mean error over the tolerance")
+            pf = {"ln_scale": _randn(g, (D,), 0.1, 1.0), "ln_bias": _randn(g, (D,), 0.1),
+                  "w1": _randn(g, (Fd, D), D ** -0.5), "b1": _randn(g, (Fd,), 0.1),
+                  "w2": _randn(g, (D, Fd), Fd ** -0.5), "b2": _randn(g, (D,), 0.1)}
+            pf = {k: v.to(device, torch.float32 if k.startswith("ln") else dt)
+                  for k, v in pf.items()}
+            errs[f"K3_{dn}"] = _check_fused(
+                f"K3 {name} {dn}", fused_ln_ffn_residual(x, **pf, activation="relu"),
+                ln_ffn_residual_reference(x, **pf, activation="relu"))
+            if not (timed and dt == torch.bfloat16):
+                continue
+            q, k, v = sdpa_views(qkv, H)
+
+            def block_unfused():
+                o = fused_attention_qkv(F.linear(x, pb["w_qkv"], pb["b_qkv"]), H)
+                return x + F.linear(o, pb["w_out"], pb["b_out"])
+
+            def ffn_unfused():
+                h = F.layer_norm(x.float(), (D,), pf["ln_scale"], pf["ln_bias"], 1e-6)
+                h = F.relu(F.linear(h.to(x.dtype), pf["w1"], pf["b1"]))
+                return x + F.linear(h, pf["w2"], pf["b2"])
+
+            M = B * S
+            times["K1"] = {
+                "kernel_ms": cuda_ms(lambda: fused_attention_qkv(qkv, H)),
+                "plain_ms": cuda_ms(lambda: attention_qkv_reference(qkv, H)),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                **bound(B * S * 4 * D * 2, 4 * B * S * S * D)}
+            times["K4"] = {
+                "kernel_ms": cuda_ms(lambda: fused_attention_block(x, **pb, num_heads=H)),
+                "plain_ms": cuda_ms(lambda: attention_block_reference(x, **pb, num_heads=H)),
+                "library_ms": cuda_ms(block_unfused),
+                **bound(2 * B * S * D * 2 + 4 * D * D * 2 + 4 * D * 2,
+                        B * (8 * S * D * D + 4 * S * S * D))}
+            times["K3"] = {
+                "kernel_ms": cuda_ms(lambda: fused_ln_ffn_residual(x, **pf, activation="relu")),
+                "plain_ms": cuda_ms(lambda: ln_ffn_residual_reference(x, **pf,
+                                                                      activation="relu")),
+                "library_ms": cuda_ms(ffn_unfused),
+                **bound(2 * M * D * 2 + 2 * D * Fd * 2 + (Fd + D) * 2 + 2 * D * 4,
+                        4 * M * D * Fd)}
+            for t in times.values():
+                t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+        out[name] = {"batch": B, "seq": S, "heads": H, "head_dim": hd, "ffn": Fd,
+                     "max_abs_err": errs, "times": times}
+        if timed:
+            torch.cuda.empty_cache()
     return out
 
 

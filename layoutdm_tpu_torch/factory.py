@@ -20,14 +20,6 @@ from layoutdm_tpu_torch.tokenizer.clustering import fit_coordinate_clusters
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 from layoutdm_tpu_torch.utils.device import require_device
 
-# model names of later ports, and the port that will bring each
-_LATER = {
-    "bart": "the encoder-decoder port (with its checkpoint converter)",
-    "diffusionlm": "the continuous-diffusion port",
-    "bitdiffusion": "the continuous-diffusion port",
-}
-
-
 def resolve_centers(
     cfg: TrainConfig, train_data: Optional[LayoutData] = None
 ) -> Optional[np.ndarray]:
@@ -87,9 +79,10 @@ def build_model(
 ):
     """The model of ``cfg`` on ``device`` (CUDA unless asked for the CPU;
     raises when CUDA is missing): ``layoutdm`` (with ``q_type`` constrained,
-    or vanilla for the ``vqdiffusion`` experiment), ``maskgit``, ``blt``,
-    ``ruite`` or ``autoreg`` / ``elem_wise_autoreg``.  The denoiser's inference path: ``fused_block`` /
-    ``fused_ffn`` select the fused kernels (K4 / K3), ``attn_v2`` the
+    or vanilla for the ``vqdiffusion`` experiment; the flattened or the
+    aggregated transformer), ``maskgit``, ``blt``, ``ruite``, ``autoreg`` /
+    ``elem_wise_autoreg``, ``bart``, ``diffusionlm`` or ``bitdiffusion``.
+    The denoiser's inference path: ``fused_block`` / ``fused_ffn`` select the fused kernels (K4 / K3), ``attn_v2`` the
     block-diagonal attention (K5) and ``smajor`` the S-major attention (K6);
     each defaults to the JAX package's own switch in the environment
     (``LAYOUTDM_TPU_FUSED_BLOCK=1``, ``LAYOUTDM_TPU_FUSED_FFN=1``,
@@ -130,6 +123,12 @@ def build_model(
         from layoutdm_tpu_torch.models.ruite import RUITE
 
         return RUITE(cfg.backbone, tokenizer, cfg.model, **kw)
-    if name in _LATER:
-        raise KeyError(f"model {name!r} is not ported yet; it comes with {_LATER[name]}")
+    if name == "bart":
+        from layoutdm_tpu_torch.models.bart import BART
+
+        return BART(cfg.backbone, tokenizer, cfg.model, **kw)
+    if name in ("diffusionlm", "bitdiffusion"):
+        from layoutdm_tpu_torch.models.continuous.models import LayoutContinuousDiffusion
+
+        return LayoutContinuousDiffusion(cfg.backbone, tokenizer, cfg.model, **kw)
     raise KeyError(name)

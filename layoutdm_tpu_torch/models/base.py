@@ -26,9 +26,10 @@ from layoutdm_tpu_torch.utils.device import require_device
 
 
 class Draws:
-    """The zoo's random draws: uniforms and Gumbel noise from
-    ``generator`` (on any device; the draws move to the caller's), or,
-    where ``injected`` names them, taken from its lists in call order."""
+    """The models' random draws: uniforms, normals, coins, integers and
+    Gumbel noise from ``generator`` (on any device; the draws move to the
+    caller's), or, where ``injected`` names them, taken as given from its
+    lists in call order."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  injected: Optional[Dict[str, Sequence]] = None):
@@ -42,12 +43,28 @@ class Draws:
             raise ValueError(f"no generator for the draw {name!r}")
         return None
 
-    def uniform(self, name: str, shape, device) -> torch.Tensor:
+    def uniform(self, name: str, shape, device, high: float = 1.0) -> torch.Tensor:
+        """U[0, ``high``) (an injected draw is taken as it is)."""
         got = self._take(name, device)
         if got is not None:
             return got
         g = self.generator
-        return torch.rand(shape, generator=g, device=g.device).to(device)
+        u = torch.rand(shape, generator=g, device=g.device).to(device)
+        return u * high if high != 1.0 else u
+
+    def normal(self, name: str, shape, device) -> torch.Tensor:
+        got = self._take(name, device)
+        if got is not None:
+            return got
+        g = self.generator
+        return torch.randn(shape, generator=g, device=g.device).to(device)
+
+    def bernoulli(self, name: str, p: float, shape, device) -> torch.Tensor:
+        """Boolean coins, True with probability ``p``."""
+        got = self._take(name, device)
+        if got is not None:
+            return got.bool()
+        return self.uniform(name, shape, device) < p
 
     def gumbel(self, name: str, shape, device) -> torch.Tensor:
         got = self._take(name, device)

@@ -8,10 +8,12 @@ The model lives on CUDA unless given ``device="cpu"``.  ``fused_block`` /
 ``attn_v2`` / ``smajor`` its attention on K5 / K6 (``models.nn.Block``);
 training keeps the unfused path.
 
-Ported: ``q_type="constrained"`` (LayoutDM) and ``q_type="vanilla"``
-(the ``vqdiffusion`` experiment: one mask-and-replace matrix over the full
-vocabulary) with the flattened transformer.  The aggregated transformer
-comes with a later port and raises ``NotImplementedError`` here.
+``q_type="constrained"`` (LayoutDM) and ``q_type="vanilla"`` (the
+``vqdiffusion`` experiment: one mask-and-replace matrix over the full
+vocabulary), with the flattened transformer or, under
+``transformer_type="aggregated"``, `models.nn.CategoricalAggregatedTransformer`
+(attention over the elements; its backbone shrinks by a further 27/29:
+d_model 432, FFN 1728, 8 heads of 54 at the defaults).
 """
 
 from __future__ import annotations
@@ -29,7 +31,13 @@ from layoutdm_tpu_torch.models.diffusion.sampler import (
     sample_chain,
 )
 from layoutdm_tpu_torch.models.diffusion.vanilla import VanillaQ
-from layoutdm_tpu_torch.models.nn import Dropout, denoiser_path, make_transformer
+from layoutdm_tpu_torch.models.nn import (
+    CategoricalAggregatedTransformer,
+    Dropout,
+    denoiser_path,
+    make_module,
+    make_transformer,
+)
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 from layoutdm_tpu_torch.utils.device import require_device
 
@@ -56,10 +64,8 @@ class LayoutDM:
         cfg = model_cfg or ModelConfig()
         if cfg.q_type not in ("constrained", "vanilla"):
             raise ValueError(f"unknown q_type {cfg.q_type!r}")
-        if cfg.transformer_type != "flattened":
-            raise NotImplementedError(
-                f"transformer_type={cfg.transformer_type!r} is not ported yet"
-            )
+        if cfg.transformer_type not in ("flattened", "aggregated"):
+            raise ValueError(f"unknown transformer_type {cfg.transformer_type!r}")
         # MASK must be the last vocabulary id (`models/layoutdm.py:46`)
         if tokenizer.id_to_name(tokenizer.N_total - 1) != "mask":
             raise ValueError("MASK must be the last vocabulary id")
@@ -76,19 +82,18 @@ class LayoutDM:
         else:
             self.q = VanillaQ(tokenizer.N_total, cfg.num_timesteps, **sched)
         self.backbone_cfg = backbone.shrunk(29 / 32)
-        self.net = make_transformer(
-            self.device, generator,
-            backbone=self.backbone_cfg,
-            num_classes=self.num_classes,
-            max_token_length=self.seq_len,
-            pos_emb=cfg.pos_emb,
-            n_attr_per_elem=tokenizer.N_var_per_element,
-            dtype=dtype,
-            fused_block=fused_block,
-            fused_ffn=fused_ffn,
-            attn_v2=attn_v2,
-            smajor=smajor,
-        )
+        kw = dict(num_classes=self.num_classes, max_token_length=self.seq_len,
+                  n_attr_per_elem=tokenizer.N_var_per_element, dtype=dtype,
+                  fused_block=fused_block, fused_ffn=fused_ffn, attn_v2=attn_v2,
+                  smajor=smajor)
+        if cfg.transformer_type == "aggregated":
+            # extra 27/29 shrink for parameter parity (`base.py:85-93`)
+            self.backbone_cfg = self.backbone_cfg.shrunk(27 / 29)
+            self.net = make_module(CategoricalAggregatedTransformer, self.device, generator,
+                                   backbone=self.backbone_cfg, **kw)
+        else:
+            self.net = make_transformer(self.device, generator, backbone=self.backbone_cfg,
+                                        pos_emb=cfg.pos_emb, **kw)
         self._predict_start = make_predict_start(self.net, self.num_classes)
 
     @property

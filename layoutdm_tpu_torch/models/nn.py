@@ -9,10 +9,9 @@ norm1 quirk: x = norm1(x), then x + attn(x).  Attention runs at the native
 head width (58 at the flagship): the TPU package's head-padding to 64 lanes
 and lane-padded vocab head are TPU layout tricks with no counterpart here.
 
-Modules are built on the meta device and materialised by the caller
-(``LayoutDM`` does ``to_empty`` + ``init_params``), so construction never
-draws from the global RNG; ``init_params`` draws from an explicit
-``torch.Generator``.
+Modules are built on the meta device and materialised by `make_module`
+(``to_empty`` + `init_weights`), so construction never draws from the
+global RNG; `init_weights` draws from an explicit ``torch.Generator``.
 
 Training mode is a ``Dropout`` passed to ``forward``: it applies the fixed
 0.1 embedding dropout and the Block's residual and FFN dropouts at
@@ -29,6 +28,13 @@ Without a mask no mask tensor is built and the kernels are routed as
 before.  ``CategoricalTransformer.decode_step`` feeds one token through
 the stack against per-layer key/value caches (`KVCache`), the JAX
 ``decode=True`` mode.
+
+The other denoisers of the JAX package are here too, on the same blocks:
+`CategoricalAggregatedTransformer` (attention over elements),
+`CategoricalEncDecTransformer` (BART: the encoder, and `DecoderBlock`s with
+causal self-attention and `CrossAttention`, whose cached decode projects
+the memory's keys and values once), `ElementTransformer` with its layout
+codec; `AdaInsNorm` is the ``adainnorm`` timestep norm.
 
 The fused denoiser path (``fused_block`` / ``fused_ffn``, the JAX
 package's ``LAYOUTDM_TPU_FUSED_BLOCK`` / ``LAYOUTDM_TPU_FUSED_FFN``) has the
@@ -173,16 +179,41 @@ class AdaLayerNorm(nn.Module):
         return y * (1 + scale) + shift
 
 
+class AdaInsNorm(nn.Module):
+    """Instance norm over the sequence axis with the timestep's scale and
+    shift (`transformer_utils.py:86-100`, JAX `AdaInsNorm`): population
+    variance and eps 1e-5, not the LayerNorms' 1e-6.  Statistics and the
+    output are float32."""
+
+    EPS = 1e-5
+
+    def __init__(self, d_model: int, max_timestep: int, emb_type: str):
+        super().__init__()
+        self.cond = AdaNormCond(d_model, max_timestep, emb_type)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.cond(t).chunk(2, dim=-1)
+        x = x.float()
+        mean = x.mean(dim=1, keepdim=True)
+        var = x.var(dim=1, keepdim=True, unbiased=False)
+        return (x - mean) * torch.rsqrt(var + self.EPS) * (1 + scale) + shift
+
+
 class KVCache:
     """Per-layer key/value caches of single-token decoding (the JAX
     ``decode=True`` mode's "cache" collection): (B, L, H, hd) keys and
-    values in the compute dtype, and the position the next token takes."""
+    values in the compute dtype, and the position the next token takes.
+    An encoder-decoder also holds each decoder layer's cross-attention
+    keys and values, projected once from the encoder memory
+    (`CategoricalEncDecTransformer.new_cache`)."""
 
     def __init__(self, num_layers: int, batch: int, length: int, nhead: int,
                  head_dim: int, dtype, device):
         shape = (batch, length, nhead, head_dim)
         self.keys = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)]
         self.values = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)]
+        self.cross_keys: list = []
+        self.cross_values: list = []
         self.index = 0
 
 
@@ -312,10 +343,9 @@ class Block(nn.Module):
         tt = cfg.timestep_type
         if tt is None:
             self.norm1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        elif "adainnorm" in tt:
-            raise NotImplementedError("AdaInsNorm is not ported yet")
         else:
-            self.norm1 = AdaLayerNorm(cfg.d_model, cfg.diffusion_step, tt)
+            norm = AdaInsNorm if "adainnorm" in tt else AdaLayerNorm
+            self.norm1 = norm(cfg.d_model, cfg.diffusion_step, tt)
         self.attn = SelfAttention(cfg.d_model, cfg.nhead, cfg.dropout, dtype, attn_v2, smajor)
         self.linear1 = nn.Linear(cfg.d_model, cfg.dim_feedforward)
         self.linear2 = nn.Linear(cfg.dim_feedforward, cfg.d_model)
@@ -328,7 +358,7 @@ class Block(nn.Module):
         """``mask`` / ``key_padding_mask``: as `SelfAttention`; ``cache``:
         decode one token against ``layer``'s caches."""
         drop = dropout or (lambda h, rate: h)
-        if isinstance(self.norm1, AdaLayerNorm):
+        if isinstance(self.norm1, (AdaLayerNorm, AdaInsNorm)):
             x = self.norm1(x, timestep)
         else:
             x = self.norm1(x.float())
@@ -442,10 +472,7 @@ class CategoricalTransformer(nn.Module):
         self.lookahead = lookahead
         self.max_token_length = max_token_length
         self.cat_emb = nn.Embedding(num_classes, d)
-        if pos_emb == "default":
-            self.pos = PositionalEmbedding(d, max_token_length)
-        else:
-            self.pos = ElementPositionalEmbedding(d, max_token_length, n_attr_per_elem)
+        self.pos = positional_embedding(pos_emb, d, max_token_length, n_attr_per_elem)
         self.backbone = TransformerEncoder(backbone, dtype, **switches)
         self.head_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.head = nn.Linear(d, num_classes, bias=False)
@@ -483,36 +510,309 @@ class CategoricalTransformer(nn.Module):
         cache.index += 1
         return self.head(self.head_norm(h.float()))
 
-    @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> None:
-        """Random weights at the flax initializers' scales, drawn on the CPU
-        from ``generator`` (so one seed gives one model on any device):
-        Dense kernels N(0, 1/fan_in), embeddings N(0, 1/dim), positions
-        U[0, 1), zero biases, unit norm scales."""
 
-        def fill(p: torch.Tensor, draw: torch.Tensor) -> None:
-            p.copy_(draw.to(p.dtype))
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights at the flax initializers' scales, drawn on the CPU
+    from ``generator`` (so one seed gives one model on any device): Dense
+    kernels N(0, 1/fan_in), embeddings N(0, 1/dim), positions U[0, 1),
+    zero biases, unit norm scales."""
 
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                fill(m.weight, torch.randn(m.weight.shape, generator=generator)
-                     / math.sqrt(m.in_features))
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                fill(m.weight, torch.randn(m.weight.shape, generator=generator)
-                     / math.sqrt(m.embedding_dim))
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
+    def fill(p: torch.Tensor, draw: torch.Tensor) -> None:
+        p.copy_(draw.to(p.dtype))
+
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            fill(m.weight, torch.randn(m.weight.shape, generator=generator)
+                 / math.sqrt(m.in_features))
+            if m.bias is not None:
                 m.bias.zero_()
-            elif isinstance(m, (PositionalEmbedding, ElementPositionalEmbedding)):
-                for p in m.parameters(recurse=False):
-                    fill(p, torch.rand(p.shape, generator=generator))
+        elif isinstance(m, nn.Embedding):
+            fill(m.weight, torch.randn(m.weight.shape, generator=generator)
+                 / math.sqrt(m.embedding_dim))
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (PositionalEmbedding, ElementPositionalEmbedding)):
+            for p in m.parameters(recurse=False):
+                fill(p, torch.rand(p.shape, generator=generator))
 
 
-def denoiser_path(net: CategoricalTransformer) -> str:
-    """The kernels the denoiser's mask-free inference runs."""
-    block = net.backbone.layers[0]
+def positional_embedding(pos_emb: str, d_model: int, max_token_length: int,
+                         n_attr_per_elem: int) -> nn.Module:
+    if pos_emb == "default":
+        return PositionalEmbedding(d_model, max_token_length)
+    return ElementPositionalEmbedding(d_model, max_token_length, n_attr_per_elem)
+
+
+class CategoricalAggregatedTransformer(nn.Module):
+    """Element-aggregated denoiser (`nn_lib.py:403-452`, JAX
+    `CategoricalAggregatedTransformer`): the attribute embeddings of each
+    element are joined into one token (a float32 Dense + ReLU) before the
+    encoder and expanded back after it, so attention runs over the
+    elements (S / 5).  LayoutDM's ``transformer_type="aggregated"``."""
+
+    def __init__(self, backbone: BackboneConfig, num_classes: int, max_token_length: int,
+                 n_attr_per_elem: int = 5, dtype=torch.float32, **switches):
+        super().__init__()
+        d = backbone.d_model
+        self.dtype, self.n_attr = dtype, n_attr_per_elem
+        self.cat_emb = nn.Embedding(num_classes, d)
+        self.enc = nn.Linear(n_attr_per_elem * d, d)
+        self.pos = PositionalEmbedding(d, max_token_length)
+        self.backbone = TransformerEncoder(backbone, dtype, **switches)
+        self.dec = nn.Linear(d, n_attr_per_elem * d)
+        self.head_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.head = nn.Linear(d, num_classes, bias=False)
+
+    def forward(self, seq: torch.Tensor, timestep: Optional[torch.Tensor] = None,
+                dropout: Optional[Dropout] = None,
+                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, S = seq.shape
+        A, d = self.n_attr, self.cat_emb.embedding_dim
+        h = embed_tokens(self.cat_emb.weight, seq, self.dtype)
+        if dropout is not None:
+            h = dropout(h, EMB_DROPOUT)
+        h = F.relu(self.enc(h.reshape(B, S // A, A * d).float()))
+        h = h + self.pos(S // A)
+        h = self.backbone(h.to(self.dtype), timestep, dropout, None, key_padding_mask)
+        h = F.relu(self.dec(h.float())).reshape(B, S, d)
+        return self.head(self.head_norm(h))
+
+
+class CrossAttention(nn.Module):
+    """Decoder cross-attention (JAX `CrossAttention`, `nn.py:838-896`): a
+    q projection of the decoder stream, a packed kv projection of the
+    encoder memory and an out projection, on the plain path (scores in the
+    compute dtype, float32 softmax cast back).  No kernel takes it, in the
+    JAX package or here."""
+
+    def __init__(self, d_model: int, nhead: int, dtype=torch.float32):
+        super().__init__()
+        self.nhead, self.dtype = nhead, dtype
+        self.head_dim = d_model // nhead
+        self.q = nn.Linear(d_model, d_model)
+        self.kv = nn.Linear(d_model, 2 * d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def project_memory(self, memory: torch.Tensor):
+        """(B, M, D) memory -> its keys and values, each (B, M, H, hd)."""
+        B, M, _ = memory.shape
+        kv = _linear(memory, self.kv, self.dtype).reshape(B, M, 2, self.nhead, self.head_dim)
+        return kv.unbind(2)
+
+    def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
+                kv: Optional[tuple] = None) -> torch.Tensor:
+        """``kv``: keys and values projected before (the cached decode),
+        else projected from ``memory``."""
+        dt, H, hd = self.dtype, self.nhead, self.head_dim
+        B, S, D = x.shape
+        q = _linear(x, self.q, dt).reshape(B, S, H, hd)
+        k, v = kv if kv is not None else self.project_memory(memory)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        attn = torch.softmax(scores.float(), dim=-1).to(dt)
+        o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
+        return _linear(o, self.out, dt)
+
+
+class DecoderBlock(nn.Module):
+    """Pre-norm decoder block (JAX `DecoderBlock`, `nn.py:899-957`; torch's
+    ``TransformerDecoderLayer(norm_first=True)``): norm1, causal
+    self-attention, norm2, cross-attention, norm3, FFN, each with its
+    residual.  The FFN runs K3 only on a full-sequence inference call
+    under ``fused_ffn``; the cached decode keeps the unfused FFN."""
+
+    def __init__(self, cfg: BackboneConfig, dtype=torch.float32, fused_ffn: bool = False):
+        super().__init__()
+        d = cfg.d_model
+        self.dtype, self.dropout = dtype, cfg.dropout
+        self.activation_name = cfg.activation
+        self.activation = ACTIVATIONS[cfg.activation]
+        self.fused_ffn = fused_ffn and can_use_fused_ffn(d, cfg.activation)
+        self.norm1 = nn.LayerNorm(d, eps=LN_EPS)
+        self.self_attn = SelfAttention(d, cfg.nhead, cfg.dropout, dtype)
+        self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
+        self.cross_attn = CrossAttention(d, cfg.nhead, dtype)
+        self.norm3 = nn.LayerNorm(d, eps=LN_EPS)
+        self.linear1 = nn.Linear(d, cfg.dim_feedforward)
+        self.linear2 = nn.Linear(cfg.dim_feedforward, d)
+
+    def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor],
+                mask: Optional[torch.Tensor] = None, dropout: Optional[Dropout] = None,
+                cache: Optional[KVCache] = None, layer: int = 0) -> torch.Tensor:
+        """``mask``: the (S, S) additive causal mask; ``cache``: decode one
+        token against ``layer``'s self-attention caches and its prefilled
+        cross keys and values (``memory`` is then unused)."""
+        drop = dropout or (lambda h, rate: h)
+        h = self.norm1(x.float())
+        if cache is not None:
+            h = self.self_attn.decode_step(h, cache, layer)
+        else:
+            h = self.self_attn(h, dropout, mask=mask)
+        x = x + drop(h, self.dropout)
+        kv = None if cache is None else (cache.cross_keys[layer], cache.cross_values[layer])
+        x = x + drop(self.cross_attn(self.norm2(x.float()), memory, kv), self.dropout)
+        if (self.fused_ffn and cache is None and dropout is None
+                and not torch.is_grad_enabled()):
+            return fused_ln_ffn_residual(
+                x, self.norm3.weight, self.norm3.bias, self.linear1.weight,
+                self.linear1.bias, self.linear2.weight, self.linear2.bias,
+                self.activation_name, LN_EPS,
+            )
+        h = self.activation(_linear(self.norm3(x.float()), self.linear1, self.dtype))
+        return x + drop(_linear(h, self.linear2, self.dtype), self.dropout)
+
+
+class CategoricalEncDecTransformer(nn.Module):
+    """BART-style encoder-decoder over token sequences (`nn_lib.py:316-400`,
+    JAX `CategoricalEncDecTransformer`): the encoder is `TransformerEncoder`
+    with plain LayerNorms (its mask-free inference reaches the kernels as
+    any encoder's does), the decoder `DecoderBlock`s under a causal mask.
+    Module names follow the flax tree (``input_emb``, ``target_pos``,
+    ``encoder.layers.i``, ``dec{i}``, ``cross_attn.kv``, ...), so
+    `utils.params.params_from_flax` maps a JAX tree onto it."""
+
+    def __init__(self, backbone: BackboneConfig, num_classes: int, max_token_length: int,
+                 pos_emb: str = "default", n_attr_per_elem: int = 5,
+                 dtype=torch.float32, **switches):
+        """``max_token_length``: the decoder length (BOS included);
+        ``switches``: the encoder's denoiser-path keywords of `Block`;
+        ``fused_ffn`` also reaches the decoder's full-sequence FFN."""
+        super().__init__()
+        d = backbone.d_model
+        self.dtype = dtype
+        self.max_token_length = max_token_length
+        self.num_layers = backbone.num_layers
+        self.input_emb = nn.Embedding(num_classes, d)
+        self.target_emb = nn.Embedding(num_classes, d)
+        self.input_pos = positional_embedding(pos_emb, d, max_token_length, n_attr_per_elem)
+        self.target_pos = positional_embedding(pos_emb, d, max_token_length, n_attr_per_elem)
+        self.encoder = TransformerEncoder(backbone, dtype, **switches)
+        for i in range(backbone.num_layers):
+            self.add_module(f"dec{i}", DecoderBlock(backbone, dtype,
+                                                    switches.get("fused_ffn", False)))
+        self.head_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.head = nn.Linear(d, num_classes, bias=False)
+
+    @property
+    def decoder(self):
+        return [getattr(self, f"dec{i}") for i in range(self.num_layers)]
+
+    def forward(self, input_seq: Optional[torch.Tensor],
+                target_seq: Optional[torch.Tensor] = None,
+                dropout: Optional[Dropout] = None,
+                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits of the decoder over ``target_seq`` (B, S); with
+        ``target_seq=None`` the encoder memory of ``input_seq``, and with
+        ``memory`` given the encoder is skipped."""
+        if memory is None:
+            h = embed_tokens(self.input_emb.weight, input_seq, self.dtype)
+            h = h + self.input_pos(input_seq.shape[1])
+            if dropout is not None:
+                h = dropout(h, EMB_DROPOUT)
+            memory = self.encoder(h.to(self.dtype), None, dropout)
+            if target_seq is None:
+                return memory
+        S = target_seq.shape[1]
+        h = embed_tokens(self.target_emb.weight, target_seq, self.dtype) + self.target_pos(S)
+        causal = torch.triu(torch.full((S, S), -torch.inf, device=target_seq.device), diagonal=1)
+        h = h.to(self.dtype)
+        for blk in self.decoder:
+            h = blk(h, memory, causal, dropout)
+        return self.head(self.head_norm(h.float()))
+
+    def new_cache(self, batch: int, memory: torch.Tensor) -> KVCache:
+        """Decode caches for ``batch`` rows: empty self-attention caches as
+        long as the decoder, and each layer's cross keys and values
+        projected once from ``memory`` (the JAX prefill pass)."""
+        attn = self.dec0.self_attn
+        cache = KVCache(self.num_layers, batch, self.max_token_length, attn.nhead,
+                        attn.head_dim, self.dtype, memory.device)
+        for blk in self.decoder:
+            k, v = blk.cross_attn.project_memory(memory)
+            cache.cross_keys.append(k)
+            cache.cross_values.append(v)
+        return cache
+
+    def decode_step(self, tok: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """(B, 1) decoder tokens at position ``cache.index`` -> (B, 1, V)
+        logits; writes their keys and values and advances the position."""
+        h = embed_tokens(self.target_emb.weight, tok, self.dtype)
+        h = (h + self.target_pos(1, position=cache.index)).to(self.dtype)
+        for i, blk in enumerate(self.decoder):
+            h = blk(h, None, cache=cache, layer=i)
+        cache.index += 1
+        return self.head(self.head_norm(h.float()))
+
+
+class LayoutElementEncoder(nn.Module):
+    """(label, quantized box) of each element -> one vector
+    (`models/common/layout.py` LayoutEncoder, emb_concat + concat_fc)."""
+
+    def __init__(self, d_model: int, num_labels: int, num_bins: int):
+        super().__init__()
+        self.label_emb = nn.Embedding(num_labels, d_model)
+        for key in "xywh":
+            self.add_module(f"{key}_emb", nn.Embedding(num_bins, d_model))
+        self.fc = nn.Linear(5 * d_model, d_model)
+
+    def forward(self, label: torch.Tensor, bbox_ids: torch.Tensor) -> torch.Tensor:
+        embs = [self.label_emb(label)]
+        embs += [getattr(self, f"{key}_emb")(bbox_ids[..., i]) for i, key in enumerate("xywh")]
+        return self.fc(torch.cat(embs, dim=-1))
+
+
+class LayoutElementDecoder(nn.Module):
+    """Vector -> per-attribute logits (`models/common/layout.py`
+    LayoutDecoder counterpart)."""
+
+    def __init__(self, d_model: int, num_labels: int, num_bins: int):
+        super().__init__()
+        self.num_bins = num_bins
+        self.label_head = nn.Linear(d_model, num_labels)
+        self.bbox_head = nn.Linear(d_model, 4 * num_bins)
+
+    def forward(self, h: torch.Tensor):
+        return {"label": self.label_head(h),
+                "bbox": self.bbox_head(h).reshape(h.shape[:-1] + (4, self.num_bins))}
+
+
+class ElementTransformer(nn.Module):
+    """Element-level transformer (`nn_lib.py:455-509`, JAX
+    `ElementTransformer`): one token per element through the layout codec,
+    a causal (``lookahead=False``) or bidirectional encoder, a float32
+    LayerNorm and per-attribute logits."""
+
+    def __init__(self, backbone: BackboneConfig, num_labels: int, num_bins: int,
+                 lookahead: bool = False, dtype=torch.float32, **switches):
+        super().__init__()
+        d = backbone.d_model
+        self.lookahead, self.dtype = lookahead, dtype
+        self.enc = LayoutElementEncoder(d, num_labels, num_bins)
+        self.backbone = TransformerEncoder(backbone, dtype, **switches)
+        self.norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.dec = LayoutElementDecoder(d, num_labels, num_bins)
+
+    def forward(self, label: torch.Tensor, bbox_ids: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                timestep: Optional[torch.Tensor] = None,
+                dropout: Optional[Dropout] = None):
+        h = self.enc(label, bbox_ids)
+        if dropout is not None:
+            h = dropout(h, EMB_DROPOUT)
+        mask = None
+        if not self.lookahead:
+            S = label.shape[1]
+            mask = torch.triu(torch.full((S, S), -torch.inf, device=label.device), diagonal=1)
+        h = self.backbone(h.to(self.dtype), timestep, dropout, mask, key_padding_mask)
+        return self.dec(self.norm(h.float()))
+
+
+def denoiser_path(net: nn.Module) -> str:
+    """The kernels the denoiser's (an encoder-decoder's: its encoder's)
+    mask-free inference runs."""
+    stack = net.backbone if hasattr(net, "backbone") else net.encoder
+    block = stack.layers[0]
     if block.fused_block:
         attn = "fused attention block (K4)"
     elif block.attn.attn_v2:
@@ -525,11 +825,21 @@ def denoiser_path(net: CategoricalTransformer) -> str:
     return f"{attn} + {ffn}"
 
 
-def make_transformer(device, generator: Optional[torch.Generator] = None, **kwargs):
-    """Build a `CategoricalTransformer` on ``device`` without touching the
-    global RNG; its weights come from ``generator`` (seed 0 by default)."""
+def make_module(cls, device, generator: Optional[torch.Generator] = None, **kwargs):
+    """Build ``cls(**kwargs)`` on ``device`` without touching the global
+    RNG; its weights come from ``generator`` (seed 0 by default) through
+    `init_weights`, or the module's own ``init_params`` where it has one."""
     with torch.device("meta"):
-        net = CategoricalTransformer(**kwargs)
+        net = cls(**kwargs)
     net = net.to_empty(device=device).eval()
-    net.init_params(generator or torch.Generator().manual_seed(0))
+    generator = generator or torch.Generator().manual_seed(0)
+    if hasattr(net, "init_params"):
+        net.init_params(generator)
+    else:
+        init_weights(net, generator)
     return net
+
+
+def make_transformer(device, generator: Optional[torch.Generator] = None, **kwargs):
+    """A `CategoricalTransformer` through `make_module`."""
+    return make_module(CategoricalTransformer, device, generator, **kwargs)

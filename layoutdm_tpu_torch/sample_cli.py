@@ -7,8 +7,9 @@
 Loads a job of the port's trainer (``config.json`` + ``params.pt`` [+
 ``aux_state.pt``], or ``seed_*`` subdirectories of such jobs) of any family
 `factory.build_model` builds (LayoutDM, VQDiffusion, MaskGIT, BLT, RUITE,
-the autoregressive model), builds the task's condition for
-every batch of the test split (``is_validation=true``: the val split), runs
+the autoregressive model, BART, DiffusionLM, BitDiffusion), builds the
+task's condition for every batch of the test split
+(``is_validation=true``: the val split), runs
 the reverse chain, timed (``ms per sample``, as `test.py:270-271`), and
 writes ``{results, inputs, train_cfg, test_cfg, ms_per_sample
 [, violation_rate]}`` to ``<result_dir>/<cond>_<split>_seed_<i>.pkl``, the
@@ -168,7 +169,10 @@ def run_sampling(test_cfg: TestConfig, seed_dir: str, device="cuda") -> Dict:
                 warmed.add(n)
             layouts = timed(lambda: run(gen))
             if test_cfg.cond in ("partial", "refinement"):
-                inputs.extend(_filter_invalid(tokenizer.decode(torch.as_tensor(cond["seq"]))))
+                seq = torch.as_tensor(cond["seq"])
+                if "bos" in tokenizer.special_tokens:  # decode takes the ids after BOS
+                    seq = seq[:, 1:]
+                inputs.extend(_filter_invalid(tokenizer.decode(seq)))
             if relation:
                 # the generated boxes behind the canvas, for the violation check
                 S1 = graph["bbox"].shape[1]

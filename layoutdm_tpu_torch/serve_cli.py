@@ -45,11 +45,11 @@ batch-mates (guidance takes the mean penalty over the fixed run width,
 whatever the other rows hold).  The JAX service compiles one
 program per lane; here each lane is the same eager chain, reused.
 
-A job of the baseline zoo (MaskGIT, BLT, RUITE, the autoregressive model)
-serves too.  Its samplers draw one stream for the whole batch, so a zoo
-lane runs one request per run, seeded by the request's seed
-(``supports_per_row_keys``), and ``relation`` is refused: the zoo takes no
-guidance (``supports_guidance``).  An unconditional zoo request reaches
+A job of the baseline zoo (MaskGIT, BLT, RUITE, the autoregressive model,
+BART, DiffusionLM, BitDiffusion) serves too.  Its samplers draw one stream
+for the whole batch, so a zoo lane runs one request per run, seeded by the
+request's seed (``supports_per_row_keys``), and ``relation`` is refused:
+the zoo takes no guidance (``supports_guidance``).  An unconditional zoo request reaches
 the sampler with no condition, so MaskGIT and BLT draw its element counts
 from the job's aux state, as their sampling CLI does.
 """

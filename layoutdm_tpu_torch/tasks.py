@@ -26,6 +26,11 @@ MAX_PARTIAL_RATIO = 0.3  # `task.py:15`
 COND_TYPES = ("c", "cwh", "partial", "gt", "random", "refinement", "relation")
 
 
+def _as_tensor(x, device) -> torch.Tensor:
+    """An injected draw (numpy or a tensor on any device) on ``device``."""
+    return (x if torch.is_tensor(x) else torch.tensor(np.asarray(x))).to(device)
+
+
 def get_cond(
     batch: Dict[str, Any],
     tokenizer: LayoutSequenceTokenizer,
@@ -55,7 +60,7 @@ def get_cond(
 
     def draw(key, make):
         if key in noise:
-            return torch.tensor(np.asarray(noise[key]), device=dev)
+            return _as_tensor(noise[key], dev)
         return make()
 
     if cond_type == "partial":
@@ -110,7 +115,7 @@ def get_cond(
         ratio = draw("ratio", lambda: torch.rand((B,), generator=generator).to(dev))
         scores = noise.get("scores")
         if scores is not None:
-            scores = torch.tensor(np.asarray(scores), device=dev)
+            scores = _as_tensor(scores, dev)
         loss_mask = sample_mask(
             torch.ones((B, S), dtype=torch.bool, device=dev), ratio,
             generator=generator, scores=scores,

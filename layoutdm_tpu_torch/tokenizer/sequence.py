@@ -1,5 +1,6 @@
 """Layout <-> flat token sequence (port of
-``layoutdm_tpu/tokenizer/sequence.py``, `LayoutSequenceTokenizer` only).
+``layoutdm_tpu/tokenizer/sequence.py``: `LayoutSequenceTokenizer` and
+`LayoutDictTokenizer`).
 
 A layout batch {label (B,S), bbox (B,S,4), mask (B,S)} maps to one token
 sequence ``(c1 x1 y1 w1 h1 c2 ...)`` of length S*C (+1 with BOS) over the
@@ -199,3 +200,61 @@ class LayoutSequenceTokenizer:
         if self.bbox_tokenizer.shared_vocab == "x-y-w-h":
             start += ("x", "y", "w", "h").index(name) * self.N_bbox_per_var
         return slice(start, start + self.N_bbox_per_var)
+
+
+@dataclass(frozen=True)
+class LayoutDictTokenizer(LayoutSequenceTokenizer):
+    """Layout -> a dict of per-element sequences instead of one flat
+    sequence (`layout_tokenizer.py:316-396`, JAX `LayoutDictTokenizer`):
+    {label (B, S[+1]), bbox ids (B, S[+1], 4), mask}, with BOS and EOS
+    rows for element-wise autoregressive models when the vocabulary has
+    both."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.bbox_tokenizer.var_order != ("x", "y", "w", "h"):
+            raise ValueError("LayoutDictTokenizer needs the x-y-w-h variable order")
+        if self.bbox_tokenizer.shared_vocab != "xywh":
+            raise ValueError("LayoutDictTokenizer needs the shared 'xywh' box vocabulary")
+
+    def encode(self, inputs: Dict) -> Dict[str, torch.Tensor]:
+        bbox = self.bbox_tokenizer.encode(torch.as_tensor(inputs["bbox"], dtype=torch.float32))
+        dev = bbox.device
+        label = torch.as_tensor(inputs["label"], device=dev).long()
+        mask = torch.as_tensor(inputs["mask"], device=dev).bool()
+        if self.pad_until_max:
+            padn = self.max_elements - label.shape[1]
+            if padn > 0:
+                label = F.pad(label, (0, padn))
+                bbox = F.pad(bbox, (0, 0, 0, padn))
+                mask = F.pad(mask, (0, padn))
+        bbox = bbox + self.N_category
+        if "pad" in self.special_tokens:
+            pad_id = self.name_to_id("pad")
+            label = torch.where(mask, label, pad_id)
+            bbox = torch.where(mask[..., None], bbox, pad_id)
+        out = {"label": label, "bbox": bbox, "mask": mask}
+        if "bos" in self.special_tokens and "eos" in self.special_tokens:
+            B, S = label.shape
+            label = torch.cat([torch.full((B, 1), self.name_to_id("bos"), device=dev), label], 1)
+            bbox = torch.cat([torch.zeros((B, 1, 4), dtype=bbox.dtype, device=dev), bbox], 1)
+            mask = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev), mask], 1)
+            eos_here = torch.arange(S + 1, device=dev)[None, :] == mask.sum(dim=1, keepdim=True)
+            out = {"label": torch.where(eos_here, self.name_to_id("eos"), label),
+                   "bbox": bbox, "mask": mask | eos_here}
+        return out
+
+    def decode(self, inputs: Dict) -> Dict[str, torch.Tensor]:
+        label = torch.as_tensor(inputs["label"])
+        bbox_ids = torch.as_tensor(inputs["bbox"]) - self.N_category
+        if "mask" in inputs:
+            invalid = ~torch.as_tensor(inputs["mask"]).bool()
+        else:
+            invalid = torch.zeros_like(label, dtype=torch.bool)
+        invalid = invalid | self._filter_eos(label)
+        label_valid = (0 <= label) & (label < self.N_category)
+        bbox_valid = torch.all((0 <= bbox_ids) & (bbox_ids < self.N_bbox), -1)
+        invalid = invalid | ~(label_valid & bbox_valid)
+        bbox = self.bbox_tokenizer.decode(bbox_ids)
+        return {"bbox": torch.where(invalid[..., None], 0.0, bbox),
+                "label": torch.where(invalid, 0, label), "mask": ~invalid}

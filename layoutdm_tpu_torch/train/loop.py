@@ -4,7 +4,9 @@ reference `main.py:57-205`).
     python -m layoutdm_tpu_torch.train.loop <experiment> <dataset> [k=v ...] [device=cuda|cpu]
 
 ``<experiment>``: ``layoutdm``, ``vqdiffusion``, ``maskgit``, ``blt``,
-``ruite``, ``autoreg`` (and their ``configs.EXPERIMENTS`` aliases).
+``ruite``, ``autoreg``, ``bart``, ``diffusionlm``, ``bitdiffusion`` (and
+their ``configs.EXPERIMENTS`` aliases; ``model.transformer_type=aggregated``
+trains the aggregated LayoutDM).
 
 Per epoch: shuffled host batches -> tokenize -> one train step per batch on
 the device; the validation loss; the host-side LR schedule; best/last

@@ -7,8 +7,10 @@ the state is a `TrainState` of the model, its ``torch.optim.AdamW`` and the
 model's aux state, updated in place.  The model is any family of
 `factory.build_model` (``loss(tokens, state, generator, is_train)``), and
 its aux state an ``LtState`` (LayoutDM, VQDiffusion), a ``SeqLenState``
-(MaskGIT, BLT) or ``None`` (RUITE, the autoregressive model), as in the
-JAX `train/step.py:87-135`.  The weight-decay mask becomes two parameter
+(MaskGIT, BLT) or ``None`` (RUITE, the autoregressive model, BART,
+DiffusionLM, BitDiffusion), as in the JAX `train/step.py:87-135`.  The
+model's ``net`` holds every trained parameter (DiffusionLM's rounder and
+token embedding too).  The weight-decay mask becomes two parameter
 groups.  Gradients are clipped as optax's ``clip_by_global_norm`` does:
 scaled by ``max_norm / norm`` only when ``norm > max_norm`` (torch's
 ``clip_grad_norm_`` adds 1e-6 to the norm).

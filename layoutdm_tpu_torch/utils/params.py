@@ -1,12 +1,14 @@
 """Weights carried across: the JAX package's flax param tree -> the port's
 ``state_dict``, and the port's job directory.
 
-``params_from_flax`` inverts the key map of
-``layoutdm_tpu/utils/torch_port.py::convert_categorical_transformer``: a
-nested dict of numpy arrays (``cat_emb/embedding``, ``pos/elem_emb``,
+``params_from_flax`` maps a flax param tree, a nested dict of numpy
+arrays (``cat_emb/embedding``, ``pos/elem_emb``,
 ``backbone/layer{i}/norm1/AdaNormCond_0/...``, ``attn/qkv/kernel`` (D, 3D),
-``head/kernel`` ...) becomes `models.nn.CategoricalTransformer` keys.
-Dense kernels are stored (in, out) by flax and (out, in) by torch.
+``head/kernel``; BART's ``encoder/layer{i}`` and ``dec{i}/cross_attn/kv``;
+DiffusionLM's ``rounder`` and ``token_emb`` ...), onto the port's module
+names, which follow the flax tree: every family of `factory.build_model`
+loads it.  Dense kernels are stored (in, out) by flax and (out, in) by
+torch.
 
 A job directory holds ``config.json`` (the configs' ``to_dict``),
 ``params.pt`` (the denoiser's state dict) and, from the trainer,
@@ -52,8 +54,9 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``CategoricalTransformer`` params -> the port's state dict
-    (float32 CPU tensors)."""
+    """Flax params of any denoiser of the JAX package -> the port's state
+    dict (float32 CPU tensors).  The port's modules carry the flax names,
+    so one rule set maps every family."""
     sd = {}
     for path, value in _flatten(tree):
         arr = np.asarray(value, dtype=np.float32)
@@ -66,6 +69,15 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.T
         sd[".".join(parts)] = torch.tensor(arr)  # a copy, contiguous
     return sd
+
+
+def with_own_buffers(sd: Mapping[str, torch.Tensor], net: torch.nn.Module) -> Dict:
+    """``sd`` with ``net``'s own value for each saved buffer it lacks: a JAX
+    tree holds no frozen constant (DiffusionLM's fixed codebook), which the
+    model builds itself."""
+    own = net.state_dict()
+    return {**{k: own[k].detach().to("cpu") for k, _ in net.named_buffers()
+               if k in own and k not in sd}, **sd}
 
 
 def write_atomic(path: str, data: bytes) -> None:
@@ -146,19 +158,25 @@ def load_jax_job(job_dir: str, out_dir: str):
     """A job of the JAX package's trainer, written to ``out_dir`` as a port
     job: its ``config.json``; ``best_model.msgpack`` (and
     ``final_model.msgpack`` where there is one) through `params_from_flax`
-    as ``params.pt`` (``final_params.pt``); its ``aux_state.msgpack`` as
-    ``aux_state.pt``.  Returns (TrainConfig, best state dict, aux state as
-    arrays by field name, or ``None``)."""
+    as ``params.pt`` (``final_params.pt``), with the frozen buffers of the
+    model the config builds (`with_own_buffers`); its ``aux_state.msgpack``
+    as ``aux_state.pt``.  Returns (TrainConfig, best state dict, aux state
+    as arrays by field name, or ``None``)."""
+    from layoutdm_tpu_torch.factory import build_model
     from layoutdm_tpu_torch.utils.flax_msgpack import read_flax_msgpack
 
     with open(os.path.join(job_dir, CONFIG_FILE)) as f:
         cfg = _configs.train_config_from_dict(json.load(f))
-    sd = params_from_flax(read_flax_msgpack(os.path.join(job_dir, "best_model.msgpack")))
+    net = build_model(cfg, device="cpu").net
+
+    def read(name):
+        return with_own_buffers(params_from_flax(read_flax_msgpack(
+            os.path.join(job_dir, name))), net)
+
+    sd = read("best_model.msgpack")
     save_job(cfg, sd, out_dir)
-    final = os.path.join(job_dir, "final_model.msgpack")
-    if os.path.exists(final):
-        save_params(params_from_flax(read_flax_msgpack(final)),
-                    os.path.join(out_dir, FINAL_PARAMS_FILE))
+    if os.path.exists(os.path.join(job_dir, "final_model.msgpack")):
+        save_params(read("final_model.msgpack"), os.path.join(out_dir, FINAL_PARAMS_FILE))
     aux_path = os.path.join(job_dir, "aux_state.msgpack")
     aux = read_flax_msgpack(aux_path) if os.path.exists(aux_path) else None
     if not isinstance(aux, Mapping):

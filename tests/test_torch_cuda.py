@@ -435,6 +435,47 @@ def test_block_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, sharp):
         assert diff.mean() <= ATTN_BF16_MEAN_REL * want.float().abs().mean()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,Fd", [
+    (8, 126, 8, 42, 1344),  # BART: d_model 336, 126 tokens with BOS
+    (16, 25, 8, 54, 1728),  # the aggregated LayoutDM: d_model 432 over 25 elements
+])
+def test_kernels_at_the_new_families_widths(cuda, B, S, H, hd, Fd, dtype):
+    """K1, K2, K3 and K4 at head widths 42 (84-byte bf16 heads, 4-byte
+    aligned) and 54, and at FFN widths (336, 1344) and (432, 1728), against
+    their plain versions (K2 trains the aggregated LayoutDM; BART's training
+    takes the plain path, its width is held all the same)."""
+    D = H * hd
+    rs = np.random.RandomState(7)
+    qkv = torch.as_tensor(_slab(B, S, H, hd, seed=7)).to(cuda, dtype)
+    got = fused_attention_qkv(qkv, H)
+    _assert_attention_close(got, attention_qkv_reference(qkv, H))
+    x = torch.as_tensor((0.5 * rs.randn(B, S, D)).astype(np.float32)).to(cuda, dtype)
+    p = _ffn_params(rs, D, Fd, cuda, dtype)
+    before = ffn.LAUNCHES_FFN
+    got = ffn.fused_ln_ffn_residual(x, **p, activation="relu")
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES_FFN == before + 1
+    want = ffn.ln_ffn_residual_reference(x, **p, activation="relu")
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_fused_tol(want))
+    p = _block_params(rs, D, cuda, dtype)
+    before = attention.LAUNCHES_BLOCK
+    got = attention.fused_attention_block(x, **p, num_heads=H)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BLOCK == before + 1
+    want = attention.attention_block_reference(x, **p, num_heads=H)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_fused_tol(want))
+    do = torch.as_tensor(rs.randn(B, S, D).astype(np.float32)).to(cuda, dtype)
+    before = attention.LAUNCHES_BWD
+    got = fused_attention_qkv_bwd(qkv, do, H)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BWD == before + 1
+    want = attention_qkv_bwd_reference(qkv, do, H).float()
+    tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
 def test_block_kernel_rejects_what_it_does_not_take(cuda):
     rs = np.random.RandomState(6)
     p = _block_params(rs, 64, cuda, torch.float32)

@@ -149,7 +149,18 @@ def test_build_tokenizer_matches_jax_linear_and_cached_kmeans(tmp_path):
 
 
 def test_build_model_names_later_ports():
-    cfg = tconfigs.build_train_config("layoutdm", "rico25", ["data.bbox_quantization=linear"])
-    cfg.model.name = "bart"
-    with pytest.raises(KeyError, match="not ported yet"):
+    """Every model name the JAX factory builds, the later ports' (BART,
+    DiffusionLM, BitDiffusion) included, builds here; an unknown name
+    raises KeyError."""
+    tiny = ["data.bbox_quantization=linear", "dataset.max_seq_length=4",
+            "backbone.d_model=64", "backbone.nhead=2", "backbone.dim_feedforward=32",
+            "backbone.num_layers=1"]
+    for name in ("layoutdm", "maskgit", "blt", "autoreg", "elem_wise_autoreg", "ruite",
+                 "bart", "diffusionlm", "bitdiffusion"):
+        cfg = tconfigs.build_train_config(
+            name if name != "elem_wise_autoreg" else "autoreg", "rico25", tiny)
+        cfg.model.name = name
+        assert build_model(cfg, device="cpu").net is not None, name
+    cfg.model.name = "unknown"
+    with pytest.raises(KeyError):
         build_model(cfg, device="cpu")

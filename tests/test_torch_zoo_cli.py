@@ -1,8 +1,9 @@
 """Every family of the port's baseline zoo (MaskGIT, BLT, RUITE, the
-autoregressive LayoutTransformer, VQDiffusion) trained two steps by the
-CPU trainer and sampled by `sample_cli`, as `tests/test_cli_models.py`
-does for the JAX package; the MaskGIT job also behind the service (a zoo
-lane: one request a run, relation refused)."""
+autoregressive LayoutTransformer, VQDiffusion, BART, DiffusionLM,
+BitDiffusion) trained two steps by the CPU trainer and sampled by
+`sample_cli`, as `tests/test_cli_models.py` does for the JAX package; the
+MaskGIT and BitDiffusion jobs also behind the service (one request a run,
+relation refused)."""
 
 import glob
 import os
@@ -16,7 +17,8 @@ from layoutdm_tpu_torch import configs as tconfigs
 
 @pytest.mark.parametrize("experiment,cond", [
     ("maskgit", "unconditional"), ("blt", "c"), ("ruite", "refinement"),
-    ("autoreg", "unconditional"), ("vqdiffusion", "c"),
+    ("autoreg", "unconditional"), ("vqdiffusion", "c"), ("bart", "partial"),
+    ("diffusionlm", "unconditional"), ("bitdiffusion", "c"),
 ])
 def test_cli_trains_and_samples_each_family(tmp_path, experiment, cond):
     from layoutdm_tpu_torch.sample_cli import main as sample_main
@@ -56,6 +58,18 @@ def test_cli_trains_and_samples_each_family(tmp_path, experiment, cond):
             c = svc.generate("c", 1, seed=1, layout={"label": [1], "bbox": [[0.5, 0.5, 0.2, 0.2]]},
                              num_timesteps=2)
             assert c["layouts"][0]["label"] == [1]
+            with pytest.raises(ValueError, match="guidance"):
+                svc.generate("relation", 1, seed=1, layout={"label": [1, 2]},
+                             relations=[{"src": 0, "dst": 1, "loc": "left"}])
+        finally:
+            svc.close()
+    if experiment == "bitdiffusion":  # continuous lanes: one request a run, no relation
+        svc = LayoutService(job, max_batch_size=4, device="cpu")
+        try:
+            assert svc.info()["coalescing"] is False
+            a = svc.generate("c", 2, seed=5, layout={"label": [1], "bbox": [[0.5, 0.5, 0.2, 0.2]]})
+            b = svc.generate("c", 2, seed=5, layout={"label": [1], "bbox": [[0.5, 0.5, 0.2, 0.2]]})
+            assert a["layouts"] == b["layouts"] and len(a["layouts"]) == 2
             with pytest.raises(ValueError, match="guidance"):
                 svc.generate("relation", 1, seed=1, layout={"label": [1, 2]},
                              relations=[{"src": 0, "dst": 1, "loc": "left"}])

@@ -74,3 +74,17 @@ def cond_to_port(jc) -> SamplerCond:
         **{k: torch.as_tensor(np.asarray(getattr(jc, k))) for k in SamplerCond.TENSORS},
         init_from_seq=jc.init_from_seq,
     )
+
+
+def jax_decayed_names(params):
+    """The paths where the JAX ``decay_mask`` is true, under the port's
+    module names (``layer{i}`` -> ``layers.i``, ``kernel`` -> ``weight``)."""
+    from layoutdm_tpu.train.step import decay_mask
+
+    names = set()
+    for path, on in jax.tree_util.tree_flatten_with_path(decay_mask(params))[0]:
+        if on:
+            p = "/".join(getattr(k, "key", str(k)) for k in path)
+            names.add(p.replace("/kernel", ".weight").replace("/layer", "/layers/")
+                      .replace("/", "."))
+    return names
