@@ -99,6 +99,26 @@ no extractor weights are in the repo), and checks them:
 13. render_cli  `python -m layoutdm_tpu_torch.render_cli` on the task-c
                 pickle: a non-blank grid and one CSV row per layout.
 
+Three more (run in this order: parallel after train, int8 after the
+throughput phases, trace after sample_cli):
+5c. parallel    a world-1 process group (NCCL, no torchrun): the
+                data-parallel and shard_map train steps at B=1024, bf16,
+                each against `train_step` on the same batches and noise,
+                K1 / K2 launched layers x steps, their samples/s; the
+                trainer with `training.num_devices=1` into a job the
+                service answers from;
+9a. int8        the int8 serving engine (`models.int8_serving`): the
+                float32 mirror against the denoiser forward, the bf16
+                mirror within the JAX bound, the served int8
+                predict_start (its own calibration and head) against the
+                bf16 mirror's log-softmax (softmax L1, argmax agreement,
+                the JAX bounds); an unconditional T=100 chain at B=1024
+                on that predict_start
+                (K1 launched layers x steps, valid layouts) beside the
+                default path, layouts/s, and ms a step at B=1 and 64;
+10a. trace      `sample_cli` with `trace_dir`: a Chrome trace that names
+                K1's CUDA symbol.
+
 Each phase prints one JSON line and its seconds; then a ``{"kernels": [...]}``
 line (each kernel's time beside its bound, and the share of the bound it
 reaches, ``bound_share`` = bound_ms / ms), the
@@ -2165,6 +2185,281 @@ def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", path="default"
     return res
 
 
+# the JAX package's int8 bounds (`tests/test_int8_serving.py`): the bf16
+# mirror against the float32 forward, the int8 logits against the bf16 mirror
+INT8_MIRROR_BF16 = {"atol": 0.15, "rtol": 0.05, "argmax": 0.98}
+INT8_SOFTMAX_L1, INT8_ARGMAX = 0.25, 0.9
+
+
+def phase_int8(device="cuda", batch=1024, cfg=None, check_batch=64, latency_steps=20,
+               smi="") -> dict:
+    """The int8 serving engine (`models.int8_serving`, the JAX package's
+    ``LAYOUTDM_TPU_INT8=1``) at flagship width, random weights from a seed:
+    the float32 mirror against the float32 denoiser forward (DENOISER_TOL),
+    the bf16 mirror against it within the JAX bound, the served int8
+    predict_start (`make_int8_predict_start`: its own calibration, its head)
+    against the bf16 mirror under the same head contract (softmax L1,
+    argmax agreement; the MASK lane at -70, nothing above 0); then the same
+    predict_start in an unconditional
+    T=100 chain at B=``batch`` on the default path and on int8 in turn
+    (layouts/s, K1 launched layers x steps on int8, valid layouts), and ms
+    a step at B=1 and 64 on both."""
+    import copy
+
+    from layoutdm_tpu_torch.factory import build_model, build_tokenizer
+    from layoutdm_tpu_torch.models import int8_serving as i8
+
+    cfg = cfg or flagship_config("bfloat16")
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.dtype = "float32"
+    tok = build_tokenizer(cfg)
+    model = build_model(cfg, tok, device, generator=torch.Generator().manual_seed(12),
+                        **path_switches("default"))
+    m32 = build_model(cfg32, tok, device, **path_switches("default"))
+    m32.net.load_state_dict(model.net.state_dict())
+    bb, V, S, T = model.backbone_cfg, model.num_classes, model.seq_len, model.q.num_timesteps
+    params = model.net.state_dict()
+    rs = np.random.RandomState(13)
+    ids = torch.as_tensor(rs.randint(0, V, (check_batch, S)), device=device)
+    t = torch.as_tensor(rs.randint(0, T, check_batch), device=device)
+    default_ps = model._predict_start
+    int8_ps = i8.make_int8_predict_start(model)  # the object the chain below times
+    with torch.inference_mode():
+        want = m32.net(ids, t)
+        err32 = (i8.mirror_forward(params, bb, V, ids, t, dtype=torch.float32)
+                 - want).abs().max().item()
+        if not (np.isfinite(err32) and err32 <= DENOISER_TOL):
+            raise AssertionError(f"float32 int8 mirror against the denoiser: {err32}")
+        m16 = i8.mirror_forward(params, bb, V, ids, t, dtype=torch.bfloat16)
+        b = INT8_MIRROR_BF16
+        bf16_excess = ((m16 - want).abs() - (b["atol"] + b["rtol"] * want.abs())).max().item()
+        bf16_argmax = (m16.argmax(-1) == want.argmax(-1)).float().mean().item()
+        if not (bf16_excess <= 0 and bf16_argmax > b["argmax"]):
+            raise AssertionError(f"bf16 mirror: excess over the bound {bf16_excess}, "
+                                 f"argmax agreement {bf16_argmax}")
+        # the served predict_start (its own calibration draws, its head)
+        # against the bf16 mirror under the same head contract
+        got = int8_ps(ids, t).float()
+        head = torch.log_softmax(m16[..., :-1].float(), -1)
+        ref = torch.clamp(torch.cat([head, torch.full_like(head[..., :1], -70.0)], -1),
+                          -70.0, 0.0)
+        l1 = (ref.exp() - got.exp()).abs().sum(-1).mean().item()
+        agree = (ref.argmax(-1) == got.argmax(-1)).float().mean().item()
+        head_ok = bool(torch.isfinite(got).all() and (got[..., -1] == -70.0).all()
+                       and got.max() <= 0.0)
+        if not (l1 < INT8_SOFTMAX_L1 and agree > INT8_ARGMAX and head_ok):
+            raise AssertionError(f"int8 predict_start: softmax L1 {l1}, argmax agreement "
+                                 f"{agree}, head contract {head_ok}")
+    del m32
+
+    def chain(ps, b, steps=None):
+        model._predict_start = ps
+        try:
+            t0 = time.perf_counter()
+            out = model.sample(torch.arange(b, dtype=torch.int64), b, num_timesteps_eval=steps)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            model._predict_start = default_ps
+
+    for ps in (default_ps, int8_ps):  # warm-up: kernel builds, GEMM heuristics
+        chain(ps, batch, 5)
+    _, default_s = chain(default_ps, batch)
+    reset_launches()
+    out, int8_s = chain(int8_ps, batch)
+    launches = check_path_launches("int8 chain", "default", bb.num_layers * T)
+    elements = check_decoded("int8 chain", out, batch, cfg)
+    ms_per_step = {}
+    for b_ in (1, 64):
+        for name, ps in (("default", default_ps), ("int8", int8_ps)):
+            chain(ps, b_, latency_steps)
+            ms_per_step[f"{name}_b{b_}"] = 1e3 * chain(ps, b_, latency_steps)[1] / latency_steps
+    res = {
+        "phase": "int8",
+        "d_model": bb.d_model, "num_layers": bb.num_layers,
+        "float32_mirror_max_abs_err": err32,
+        "bf16_mirror_excess_over_bound": bf16_excess, "bf16_mirror_argmax": bf16_argmax,
+        "int8_softmax_l1": l1, "int8_argmax_agreement": agree,
+        "batch": batch, "num_timesteps": T,
+        "int8_layouts_per_s": batch / int8_s, "default_layouts_per_s": batch / default_s,
+        "int8_ms_per_step": 1e3 * int8_s / T,
+        "default_ms_per_step": 1e3 * default_s / T,
+        "ms_per_step": ms_per_step, "latency_steps": latency_steps,
+        "launches": launches, "elements": elements,
+        "nvidia_smi": smi,
+    }
+    emit(res)
+    return res
+
+
+# a world-1 parallel step against `train_step` (loss and history relative,
+# parameters absolute): two runs of `train_step` itself differ by the
+# order of the backward's float32 atomics, which Adam's normalised update
+# lifts to ~5e-7 in the parameters (seen on the card); a wrong row, draw or
+# reduction moves the update at the learning rate's scale (5e-4 a step)
+PARALLEL_TOL = 1e-5
+
+
+def phase_parallel(work_dir: str, device="cuda", cfg=None, batch=1024, steps=3,
+                   timed_steps=5, trainer_overrides=(), smi="") -> dict:
+    """The parallel training paths on a world-1 process group (NCCL on the
+    card, one GPU a rank), without torchrun: the data-parallel step and
+    the shard_map step at B=``batch``, bf16, each against `train_step` on
+    the same batches and noise (K1 and K2 launched layers x steps), the
+    two steps' samples/s beside `train_step`'s; then the trainer with
+    ``training.num_devices=1`` into a job the service loads."""
+    import torch.distributed as dist
+
+    from layoutdm_tpu_torch.configs import build_train_config
+    from layoutdm_tpu_torch.factory import build_model, build_tokenizer
+    from layoutdm_tpu_torch.parallel.mesh import make_mesh
+    from layoutdm_tpu_torch.serve_cli import LayoutService
+    from layoutdm_tpu_torch.train import loop
+    from layoutdm_tpu_torch.train.step import (
+        fold_in,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+        make_train_step_shardmap,
+        train_step,
+    )
+
+    cfg = cfg or flagship_config("bfloat16")
+    tok = build_tokenizer(cfg)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{work_dir}/dist_store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(cfg.training.num_devices)
+
+        def fresh():
+            m = build_model(cfg, tok, device, generator=torch.Generator().manual_seed(14),
+                            **path_switches("default"))
+            opt = make_optimizer(m.net, cfg.optimizer.lr, cfg.training.weight_decay,
+                                 tuple(cfg.optimizer.betas))
+            return m, init_train_state(m, opt, cfg.training.grad_norm_clip)
+
+        def cuda_gen(seed):
+            return torch.Generator(device=device).manual_seed(seed)
+
+        rs = np.random.RandomState(15)
+        model, _ = fresh()
+        batches = [model.preprocess(random_layouts(rs, batch, cfg)) for _ in range(steps)]
+        layers = model.backbone_cfg.num_layers
+
+        def trajectory(step_fn, state, gen_of):
+            reset_launches()
+            losses = [step_fn(state, b, gen_of(i))["loss"].item() for i, b in enumerate(batches)]
+            k = launch_counts()
+            if not k["K1"] == k["K2"] == layers * steps:
+                raise AssertionError(f"launches K1 {k['K1']} / K2 {k['K2']} != {layers * steps}")
+            return losses, state
+
+        def against(name, got, want):
+            (gl, gs), (wl, ws) = got, want
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, wl))
+            want_sd = ws.model.net.state_dict()
+            param_err = max((v - want_sd[k]).abs().max().item()
+                            for k, v in gs.model.net.state_dict().items())
+            hist_err = (gs.lt_state.history - ws.lt_state.history).abs().max().item()
+            if not (loss_err <= PARALLEL_TOL and param_err <= PARALLEL_TOL
+                    and hist_err <= PARALLEL_TOL * ws.lt_state.history.abs().max().item()
+                    and torch.equal(gs.lt_state.count, ws.lt_state.count)):
+                raise AssertionError(f"{name}: loss rel err {loss_err}, params {param_err}, "
+                                     f"history {hist_err}")
+            return {"loss_rel_err": loss_err, "param_max_abs_err": param_err,
+                    "history_max_abs_err": hist_err, "losses": gl}
+
+        g = cuda_gen(16)
+        ref = trajectory(train_step, fresh()[1], lambda i: g)
+        m, st = fresh()
+        g = cuda_gen(16)
+        dp = against("data-parallel step",
+                     trajectory(make_train_step(m, st.optimizer, mesh), st, lambda i: g), ref)
+        seeds = [100 + i for i in range(steps)]
+        ref_sm = trajectory(train_step, fresh()[1],
+                            lambda i: cuda_gen(fold_in(seeds[i], 0)))
+        m, st = fresh()
+        sm = against("shard_map step", trajectory(
+            make_train_step_shardmap(m, st.optimizer, mesh), st, lambda i: seeds[i]), ref_sm)
+
+        def samples_per_s(step_fn, state, arg):
+            step_fn(state, batches[0], arg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(timed_steps):
+                step_fn(state, batches[i % steps], arg)
+            torch.cuda.synchronize()
+            return batch * timed_steps / (time.perf_counter() - t0)
+
+        m, st = fresh()
+        rate = {"train_step": samples_per_s(train_step, st, cuda_gen(17))}
+        m, st = fresh()
+        rate["data_parallel"] = samples_per_s(make_train_step(m, st.optimizer, mesh), st,
+                                              cuda_gen(17))
+        m, st = fresh()
+        rate["shard_map"] = samples_per_s(make_train_step_shardmap(m, st.optimizer, mesh),
+                                          st, 17)
+        del m, st, model
+
+        # the trainer over the mesh (num_devices=1) into a job the service loads
+        tcfg = build_train_config("layoutdm", "synthetic", [
+            "debug=true", "training.num_devices=1", "training.sample_plot_epoch_interval=0",
+            f"job_dir={work_dir}/dp_job", f"dataset.dir={work_dir}/datasets",
+            *trainer_overrides])
+        reset_launches()
+        result = loop.train(tcfg, device=device)
+        if not (np.isfinite(result["best_val_loss"]) and launch_counts()["K2"] > 0):
+            raise AssertionError(f"trainer over the mesh: {result}")
+        service = LayoutService(tcfg.job_dir, max_batch_size=8, warm_tasks=(), device=device)
+        try:
+            resp = service.generate("unconditional", 2, 3, None)
+        finally:
+            service.close()
+        _check_layouts(resp, 2, tcfg.dataset.num_categories)
+    finally:
+        dist.destroy_process_group()
+    out = {"phase": "parallel", "backend": backend, "world_size": 1, "batch": batch,
+           "dtype": cfg.model.dtype, "steps": steps, "data_parallel": dp, "shard_map": sm,
+           "samples_per_s": rate, "timed_steps": timed_steps,
+           "trainer_best_val_loss": result["best_val_loss"],
+           "served_layouts": len(resp["layouts"]), "nvidia_smi": smi}
+    emit(out)
+    return out
+
+
+K1_SYMBOL = r"attention_fwd::attention_(bf16|f32)_kernel<\s*\d+\s*,\s*false\s*>"
+
+
+def phase_trace(work_dir: str, device="cuda", num_samples=16, num_timesteps=20) -> dict:
+    """`sample_cli` with ``trace_dir`` on the train_cli job (default path):
+    a Chrome trace whose kernels include K1's CUDA symbol (K6 shares the
+    body with the bias template flag on)."""
+    import re
+
+    from layoutdm_tpu_torch.sample_cli import main as sample_main
+
+    trace_dir = f"{work_dir}/trace"
+    t0 = time.perf_counter()
+    sample_main([f"job_dir={work_dir}/job", f"result_dir={work_dir}/trace_results",
+                 "cond=unconditional", f"device={device}", f"num_uncond_samples={num_samples}",
+                 f"max_batch_size={num_samples}", f"num_timesteps={num_timesteps}",
+                 f"trace_dir={trace_dir}"])
+    sec = time.perf_counter() - t0
+    (name,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    k1 = sorted(k for k in kernels if re.search(K1_SYMBOL, k))
+    if not k1:
+        raise AssertionError(f"no K1 kernel in the trace; kernels: {sorted(kernels)[:20]}")
+    out = {"phase": "trace", "file": name, "bytes": os.path.getsize(os.path.join(trace_dir, name)),
+           "events": len(events), "kernel_names": len(kernels), "k1_symbol": k1[0][:160],
+           "k1_events": sum(1 for e in events if e.get("name") in k1), "seconds": sec}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available() or torch.version.cuda is None:
         print("chip_smoke: no CUDA device (needs an NVIDIA GPU)", file=sys.stderr)
@@ -2194,6 +2489,7 @@ def main() -> int:
     tr = run(phase_train, smi=smi)
     serves = {}
     with tempfile.TemporaryDirectory() as work:
+        run(phase_parallel, work_dir=work, smi=smi)
         run(phase_zoo, work_dir=work, smi=smi)
         run(phase_fidnet_train, work_dir=work)
         run(phase_train_cli, work_dir=work)
@@ -2202,7 +2498,9 @@ def main() -> int:
             serves[path] = run(phase_serve, smi=smi, path=path, relation=guided,
                                n_latency=5 if guided else 10)
             run(phase_throughput, smi=smi, path=path)
+        run(phase_int8, smi=smi)
         run(phase_sample_cli, work_dir=work)
+        run(phase_trace, work_dir=work)
         run(phase_fidnet, work_dir=work)
         run(phase_eval_cli, work_dir=work)
         run(phase_render_cli, work_dir=work)

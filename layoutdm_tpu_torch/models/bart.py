@@ -156,7 +156,7 @@ class BART:
         """Teacher-forced cross-entropy, PAD ignored; in training the
         dropout draws from ``generator`` (or is the one given)."""
         if is_train and dropout is None:
-            dropout = Dropout(as_draws(generator).generator)
+            dropout = as_draws(generator).dropout()
         target = tokens["target"]
         logits = self.net(tokens["seq"], target[:, :-1], dropout if is_train else None)
         nll = cross_entropy(logits, target[:, 1:], target[:, 1:] != self.pad_id)

@@ -10,18 +10,29 @@ state is explicit, as in the JAX package: the element-count histogram
 autoregressive model.
 
 The zoo's random draws go through `Draws`: from a ``torch.Generator``, or,
-for parity tests, injected by name.
+for parity tests, injected by name; in the data-parallel train step a
+`Draws` with ``rows`` draws the whole batch's noise and keeps a rank's rows,
+and `full_batch_means` makes a rank's masked mean (`cross_entropy`) a share
+of the whole batch's.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from layoutdm_tpu_torch.models.nn import Dropout, denoiser_path, make_transformer
-from layoutdm_tpu_torch.ops.samplers import gumbel_noise, num_draws, sample_tokens
+from layoutdm_tpu_torch.ops.samplers import (
+    RowShard,
+    draw_rows,
+    gumbel_noise,
+    num_draws,
+    sample_tokens,
+)
 from layoutdm_tpu_torch.utils.device import require_device
 
 
@@ -32,9 +43,20 @@ class Draws:
     lists in call order."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
-                 injected: Optional[Dict[str, Sequence]] = None):
+                 injected: Optional[Dict[str, Sequence]] = None,
+                 rows: Optional[RowShard] = None):
+        """``rows``: the data-parallel rank's rows; its batch-led draws are
+        the whole batch's, sliced (`ops.samplers.RowShard`)."""
         self.generator = generator
         self.injected = {k: list(v) for k, v in (injected or {}).items()}
+        self.rows = rows
+
+    def dropout(self) -> Dropout:
+        """Training mode's dropout, drawn from the generator for these rows."""
+        return Dropout(self.generator, rows=self.rows)
+
+    def _draw(self, fn, shape) -> torch.Tensor:
+        return draw_rows(self.rows, fn, shape)
 
     def _take(self, name: str, device):
         if name in self.injected:
@@ -49,7 +71,7 @@ class Draws:
         if got is not None:
             return got
         g = self.generator
-        u = torch.rand(shape, generator=g, device=g.device).to(device)
+        u = self._draw(lambda sh: torch.rand(sh, generator=g, device=g.device), shape).to(device)
         return u * high if high != 1.0 else u
 
     def normal(self, name: str, shape, device) -> torch.Tensor:
@@ -57,7 +79,8 @@ class Draws:
         if got is not None:
             return got
         g = self.generator
-        return torch.randn(shape, generator=g, device=g.device).to(device)
+        return self._draw(lambda sh: torch.randn(sh, generator=g, device=g.device),
+                          shape).to(device)
 
     def bernoulli(self, name: str, p: float, shape, device) -> torch.Tensor:
         """Boolean coins, True with probability ``p``."""
@@ -70,14 +93,15 @@ class Draws:
         got = self._take(name, device)
         if got is not None:
             return got
-        return gumbel_noise(self.generator, shape, device=device)
+        return self._draw(lambda sh: gumbel_noise(self.generator, sh, device=device), shape)
 
     def randint(self, name: str, high: int, shape, device) -> torch.Tensor:
         got = self._take(name, device)
         if got is not None:
             return got
         g = self.generator
-        return torch.randint(0, high, shape, generator=g, device=g.device).to(device)
+        return self._draw(lambda sh: torch.randint(0, high, sh, generator=g, device=g.device),
+                          shape).to(device)
 
 
 def as_draws(rng) -> Draws:
@@ -133,7 +157,37 @@ def cross_entropy(
         nll = (1 - label_smoothing) * nll + label_smoothing * (-logp.mean(dim=-1))
     if mask is None:
         return nll.mean()
-    return torch.where(mask, nll, 0.0).sum() / torch.clamp(mask.sum(), min=1)
+    return masked_mean(nll, mask)
+
+
+# the data group and its size while a data-parallel step computes a rank's loss
+_FULL_BATCH: List[Tuple[object, int]] = []
+
+
+@contextmanager
+def full_batch_means(group, n: int):
+    """Within, `masked_mean` divides by the count of the whole batch, summed
+    over the ``n`` ranks of ``group``, and scales by ``n``: the ranks' mean
+    of their losses (and of their gradients) is then the full batch's
+    masked mean, as the JAX package's data-parallel step computes it over a
+    sharded batch."""
+    _FULL_BATCH.append((group, n))
+    try:
+        yield
+    finally:
+        _FULL_BATCH.pop()
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """sum(values where mask) / max(#mask, 1); the count is the full
+    batch's inside `full_batch_means`."""
+    total = torch.where(mask, values, 0.0).sum()
+    count = mask.sum()
+    if _FULL_BATCH:
+        group, n = _FULL_BATCH[-1]
+        dist.all_reduce(count, group=group)
+        total = total * n
+    return total / torch.clamp(count, min=1)
 
 
 class TokenModel:
@@ -189,7 +243,7 @@ class TokenModel:
         generator (of a `Draws` too); none in evaluation."""
         if not is_train:
             return None
-        return dropout or Dropout(as_draws(generator).generator)
+        return dropout or as_draws(generator).dropout()
 
     def sample_ids(self, rng, batch_size, cond=None, sampling=None, **kw):
         raise NotImplementedError

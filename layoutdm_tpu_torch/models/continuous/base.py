@@ -194,7 +194,7 @@ class ContinuousDiffusionBase:
             self_cond = torch.where(use_sc, sc, 0.0)
 
         if is_train and dropout is None:
-            dropout = Dropout(draws.generator)
+            dropout = draws.dropout()
         out = self._apply(noised, noise_level, self_cond, dropout if is_train else None)
 
         mse = (out - x) ** 2

@@ -24,7 +24,7 @@ from layoutdm_tpu_torch.ops.log_math import (
     log_onehot,
     posterior_tail,
 )
-from layoutdm_tpu_torch.ops.samplers import gumbel_noise
+from layoutdm_tpu_torch.ops.samplers import RowShard, draw_rows, gumbel_noise
 from layoutdm_tpu_torch.tokenizer.converter import Converter
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 
@@ -151,18 +151,20 @@ class ConstrainedQ:
         t: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
+        rows: Optional[RowShard] = None,
     ) -> torch.Tensor:
         """Sample x_t ~ q(x_t | x_0) in partial-lane space; returns lane ids
         (B, S, A).  Dead lanes sit at -1e9 and are never drawn.  ``noise``:
         Gumbel noise of the logits' shape, drawn from ``generator`` when
-        omitted."""
+        omitted (for ``rows``, the whole batch's, sliced)."""
         logits = self.q_pred(log_x_start_p, t)
         logits = torch.cat(
             [torch.where(self.normal_valid, logits[..., :-1], -1e9), logits[..., -1:]],
             dim=-1,
         )
         if noise is None:
-            noise = gumbel_noise(generator, logits.shape, device=logits.device)
+            noise = draw_rows(rows, lambda sh: gumbel_noise(generator, sh, device=logits.device),
+                              logits.shape)
         return torch.argmax(logits + noise, dim=-1)
 
     def corrupt(
@@ -171,6 +173,7 @@ class ConstrainedQ:
         t: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
+        rows: Optional[RowShard] = None,
     ) -> torch.Tensor:
         """Clean full-vocab ids (B, S_tok) -> corrupted ids x_t (B, S_tok):
         per-attribute `q_sample`, merged back to the full vocabulary
@@ -179,5 +182,5 @@ class ConstrainedQ:
         cv = self.converter
         B, S_tok = seq_full.shape
         ids_p = cv.f_to_p_id(seq_full.reshape(B, S_tok // cv.A, cv.A))
-        lanes = self.q_sample(log_onehot(ids_p, self.Vp), t, generator, noise)
+        lanes = self.q_sample(log_onehot(ids_p, self.Vp), t, generator, noise, rows)
         return cv.p_to_f_id(lanes).reshape(B, S_tok)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from layoutdm_tpu_torch.ops.log_math import log_onehot
+from layoutdm_tpu_torch.ops.samplers import RowShard
 
 
 @dataclass
@@ -89,6 +90,7 @@ def diffusion_loss(
     t: Optional[torch.Tensor] = None,
     pt: Optional[torch.Tensor] = None,
     xt: Optional[torch.Tensor] = None,
+    rows: Optional[RowShard] = None,
 ):
     """Returns (losses dict, new LtState).
 
@@ -96,13 +98,18 @@ def diffusion_loss(
     the timesteps, their importance weights and the corrupted sequence;
     otherwise they are drawn from ``generator``.  ``dropout`` (a
     `models.nn.Dropout`) runs the denoiser in training mode; the auxiliary
-    loss is on whenever ``is_train``."""
+    loss is on whenever ``is_train``.  ``rows``: ``seq`` is a data-parallel
+    rank's rows of a larger batch, whose timesteps and corruption noise are
+    drawn whole and sliced (`ops.samplers.RowShard`)."""
     B, S = seq.shape
     V, T = q.num_classes, q.num_timesteps
     if t is None:
-        t, pt = sample_time(generator, lt_state, B, T)
+        if rows is None:
+            t, pt = sample_time(generator, lt_state, B, T)
+        else:
+            t, pt = (x[rows.lo:rows.hi] for x in sample_time(generator, lt_state, rows.total, T))
     if xt is None:
-        xt = q.corrupt(seq, t, generator)
+        xt = q.corrupt(seq, t, generator, rows=rows)
 
     log_x_start = log_onehot(seq, V)
     log_x0_recon = predict_start(xt, t, dropout)

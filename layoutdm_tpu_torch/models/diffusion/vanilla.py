@@ -23,7 +23,7 @@ from layoutdm_tpu_torch.ops.log_math import (
     log_onehot,
     posterior_tail,
 )
-from layoutdm_tpu_torch.ops.samplers import gumbel_noise
+from layoutdm_tpu_torch.ops.samplers import RowShard, draw_rows, gumbel_noise
 
 
 def _at(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -113,13 +113,15 @@ class VanillaQ:
         t: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
+        rows: Optional[RowShard] = None,
     ) -> torch.Tensor:
         """x_t ~ q(x_t | x_0) by Gumbel-argmax; returns ids
         (`vanilla.py:153-158`).  ``noise``: Gumbel noise of the logits'
         shape, drawn from ``generator`` when omitted."""
         logits = self.q_pred(log_x_start, t)
         if noise is None:
-            noise = gumbel_noise(generator, logits.shape, device=logits.device)
+            noise = draw_rows(rows, lambda sh: gumbel_noise(generator, sh, device=logits.device),
+                              logits.shape)
         return torch.argmax(logits + noise, dim=-1)
 
     def corrupt(
@@ -128,8 +130,9 @@ class VanillaQ:
         t: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
+        rows: Optional[RowShard] = None,
     ) -> torch.Tensor:
         """Clean ids (B, S) -> corrupted ids x_t, the interface of
         `ConstrainedQ.corrupt` (the JAX package also returns x_t's log
         one-hot; the loss reads only the ids)."""
-        return self.q_sample(log_onehot(seq, self.num_classes), t, generator, noise)
+        return self.q_sample(log_onehot(seq, self.num_classes), t, generator, noise, rows)

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from layoutdm_tpu_torch.configs import BackboneConfig, ModelConfig, SamplingConfig
+from layoutdm_tpu_torch.models.base import Draws, as_draws
 from layoutdm_tpu_torch.models.diffusion.constrained import ConstrainedQ
 from layoutdm_tpu_torch.models.diffusion.loss import LtState, diffusion_loss
 from layoutdm_tpu_torch.models.diffusion.sampler import (
@@ -33,7 +34,6 @@ from layoutdm_tpu_torch.models.diffusion.sampler import (
 from layoutdm_tpu_torch.models.diffusion.vanilla import VanillaQ
 from layoutdm_tpu_torch.models.nn import (
     CategoricalAggregatedTransformer,
-    Dropout,
     denoiser_path,
     make_module,
     make_transformer,
@@ -109,23 +109,27 @@ class LayoutDM:
         self,
         tokens,
         lt_state: LtState,
-        generator: torch.Generator,
+        generator: Union[torch.Generator, Draws],
         is_train: bool = True,
     ):
         """(losses dict, new LtState).  ``tokens``: `preprocess` output with
         ``seq`` (B, S) clean token ids, or the ids themselves.  Timesteps,
         corruption and (when ``is_train``) dropout draw from ``generator``,
-        which lives on the model's device."""
+        which lives on the model's device; a `models.base.Draws` with
+        ``rows`` (the data-parallel step) draws them for the whole batch
+        and keeps its rows."""
+        draws = as_draws(generator)
         seq = tokens["seq"] if isinstance(tokens, dict) else tokens
         return diffusion_loss(
             self.q,
             self._predict_start,
             seq,
             lt_state,
-            generator,
-            dropout=Dropout(generator) if is_train else None,
+            draws.generator,
+            dropout=draws.dropout() if is_train else None,
             auxiliary_loss_weight=self.cfg.auxiliary_loss_weight,
             is_train=is_train,
+            rows=draws.rows,
         )
 
     def preprocess(

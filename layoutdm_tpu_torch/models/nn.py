@@ -80,6 +80,7 @@ from layoutdm_tpu_torch.ops.ffn import (
     can_use_fused_ffn,
     fused_ln_ffn_residual,
 )
+from layoutdm_tpu_torch.ops.samplers import RowShard, draw_rows
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 EMB_DROPOUT = 0.1  # fixed embedding dropout (JAX `models/nn.py`, `nn.Dropout(0.1)`)
@@ -94,28 +95,46 @@ class Dropout:
     in call order from ``masks`` (boolean keep-masks).  A site at rate 0
     draws nothing."""
 
-    def __init__(self, generator: Optional[torch.Generator] = None, masks=None):
+    def __init__(self, generator: Optional[torch.Generator] = None, masks=None,
+                 rows: Optional[RowShard] = None):
+        """``rows``: the data-parallel rank's rows of the batch; its masks
+        are the whole batch's, sliced (`ops.samplers.RowShard`)."""
         if (generator is None) == (masks is None):
             raise ValueError("Dropout takes a generator or masks")
         self.generator = generator
         self.masks = None if masks is None else list(masks)
+        self.rows = rows
 
-    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, rate: float, cols=None) -> torch.Tensor:
+        """``cols``: the FFN hidden's shard under tensor parallelism (its
+        ``lo``, ``hi`` and ``total`` columns); the mask is the whole
+        hidden's, sliced."""
         if rate == 0.0:
             return x
         if self.masks is not None:
             keep = torch.as_tensor(self.masks.pop(0), device=x.device)
         else:
             g = self.generator
-            keep = torch.rand(x.shape, generator=g, device=g.device) < 1.0 - rate
+
+            def draw(shape):
+                if cols is not None:
+                    u = torch.rand(shape[:-1] + (cols.total,), generator=g, device=g.device)
+                    return u[..., cols.lo:cols.hi]
+                return torch.rand(shape, generator=g, device=g.device)
+
+            keep = draw_rows(self.rows, draw, x.shape) < 1.0 - rate
             keep = keep.to(x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """A Dense in the compute dtype over float32 parameters (flax's
-    ``nn.Dense(dtype=...)``)."""
+    ``nn.Dense(dtype=...)``); a layer split by `parallel.tp` runs its
+    column- or row-parallel product (``tensor_parallel``)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
+    split = getattr(layer, "tensor_parallel", None)
+    if split is not None:
+        return split(x.to(dtype), layer.weight.to(dtype), bias)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
@@ -357,7 +376,7 @@ class Block(nn.Module):
                 cache: Optional[KVCache] = None, layer: int = 0) -> torch.Tensor:
         """``mask`` / ``key_padding_mask``: as `SelfAttention`; ``cache``:
         decode one token against ``layer``'s caches."""
-        drop = dropout or (lambda h, rate: h)
+        drop = dropout or (lambda h, rate, cols=None: h)
         if isinstance(self.norm1, (AdaLayerNorm, AdaInsNorm)):
             x = self.norm1(x, timestep)
         else:
@@ -384,7 +403,9 @@ class Block(nn.Module):
             )
         h = self.norm2(x.float())
         h = self.activation(_linear(h, self.linear1, self.dtype))
-        h = _linear(drop(h, self.dropout), self.linear2, self.dtype)
+        # the hidden's own columns where `parallel.tp` splits the FFN
+        h = _linear(drop(h, self.dropout, getattr(self.linear1, "tensor_parallel", None)),
+                    self.linear2, self.dtype)
         return x + drop(h, self.dropout)
 
 
@@ -643,7 +664,7 @@ class DecoderBlock(nn.Module):
         """``mask``: the (S, S) additive causal mask; ``cache``: decode one
         token against ``layer``'s self-attention caches and its prefilled
         cross keys and values (``memory`` is then unused)."""
-        drop = dropout or (lambda h, rate: h)
+        drop = dropout or (lambda h, rate, cols=None: h)
         h = self.norm1(x.float())
         if cache is not None:
             h = self.self_attn.decode_step(h, cache, layer)

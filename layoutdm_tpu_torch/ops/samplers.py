@@ -12,17 +12,49 @@ For request coalescing the reverse chain needs noise that depends only on a
 row's own seed; `row_gumbel` is a counter-based draw keyed by
 (row seed, counter) — murmur3's 32-bit finalizer over the lane index — so a
 row's noise never depends on its batch-mates.
+
+`RowShard` is the data-parallel trainer's view of a batch: each rank draws
+the whole batch's noise from the same stream and keeps its own rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
 NEG_INF = -float("inf")
 
 _M32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class RowShard:
+    """Rows [lo, hi) of a batch of ``total`` rows, the ones a data-parallel
+    rank holds.  `draw` makes a batch-led draw at the whole batch's shape
+    and keeps these rows, so every rank consumes its generator as a single
+    process would and holds that process's noise for its rows."""
+
+    lo: int
+    hi: int
+    total: int
+
+    def draw(self, fn: Callable[[tuple], torch.Tensor], shape) -> torch.Tensor:
+        """``fn(shape)`` for a scalar draw; ``fn((total, ...))[lo:hi]`` for
+        one whose leading dim is the shard's rows."""
+        shape = tuple(shape)
+        if not shape:
+            return fn(shape)
+        if shape[0] != self.hi - self.lo:
+            raise ValueError(f"a draw of shape {shape} is not led by the shard's "
+                             f"{self.hi - self.lo} rows")
+        return fn((self.total,) + shape[1:])[self.lo:self.hi]
+
+
+def draw_rows(rows: Optional[RowShard], fn: Callable[[tuple], torch.Tensor], shape):
+    """``fn(shape)``, through ``rows`` where a shard is given."""
+    return fn(tuple(shape)) if rows is None else rows.draw(fn, shape)
 
 
 def num_draws(name: str) -> int:

@@ -13,7 +13,9 @@ task's condition for every batch of the test split
 the reverse chain, timed (``ms per sample``, as `test.py:270-271`), and
 writes ``{results, inputs, train_cfg, test_cfg, ms_per_sample
 [, violation_rate]}`` to ``<result_dir>/<cond>_<split>_seed_<i>.pkl``, the
-JAX CLI's file names and keys.  ``k=v`` are `configs.TestConfig` fields.
+JAX CLI's file names and keys.  ``k=v`` are `configs.TestConfig` fields;
+``trace_dir=<dir>`` traces the sampling with ``torch.profiler`` into a
+Chrome trace under ``<dir>`` (`utils.profiling.maybe_trace`).
 The device is CUDA unless ``device=cpu`` is given, and the CLI raises
 without CUDA.  The denoiser path follows the JAX package's switches in the
 environment (``LAYOUTDM_TPU_ATTN_V2=1``, ``LAYOUTDM_TPU_SMAJOR=1``,
@@ -56,7 +58,14 @@ from layoutdm_tpu_torch.factory import build_model, build_tokenizer
 from layoutdm_tpu_torch.relation.guidance import RelationData, make_relation_guidance
 from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
 from layoutdm_tpu_torch.utils.device import require_device
-from layoutdm_tpu_torch.utils.params import load_aux_state, load_job
+from layoutdm_tpu_torch.utils.params import (
+    CONFIG_FILE,
+    job_path,
+    load_aux_state,
+    load_job,
+    path_exists,
+)
+from layoutdm_tpu_torch.utils.profiling import maybe_trace
 
 logger = logging.getLogger(__name__)
 
@@ -64,7 +73,7 @@ RELATION_TRANSFORMS = ["AddCanvasElement", "AddRelationConstraints(edge_ratio=0.
 
 
 def resolve_seed_dirs(job_dir: str) -> List[str]:
-    if os.path.exists(os.path.join(job_dir, "config.json")):
+    if path_exists(job_path(job_dir, CONFIG_FILE)):
         return [job_dir]
     subs = sorted(glob.glob(os.path.join(job_dir, "seed_*")))
     if subs:
@@ -83,11 +92,6 @@ def _filter_invalid(layouts: Dict[str, torch.Tensor]):
 
 def run_sampling(test_cfg: TestConfig, seed_dir: str, device="cuda") -> Dict:
     device = require_device(device)
-    if test_cfg.trace_dir:
-        raise NotImplementedError(
-            "trace_dir (a profiler trace of the sampling run) is not ported yet: "
-            "ROADMAP Queue 1 item 9"
-        )
     train_cfg, state_dict = load_job(seed_dir)
     if test_cfg.dataset_dir:
         train_cfg.dataset.dir = test_cfg.dataset_dir
@@ -130,58 +134,60 @@ def run_sampling(test_cfg: TestConfig, seed_dir: str, device="cuda") -> Dict:
         results.extend(_filter_invalid(layouts))
         return layouts
 
-    if test_cfg.cond == "unconditional":
-        sizes = split_num_samples(test_cfg.num_uncond_samples, B)
-        if test_cfg.warmup and sizes:
-            # kernel builds and allocator warm-up outside the timed region
-            model.sample(gen, sizes[0], sampling=sampling, state=state)
-        for n in sizes:
-            timed(lambda: model.sample(gen, n, sampling=sampling, state=state))
-    else:
-        relation = test_cfg.cond == "relation"
-        transform = compose_transform(RELATION_TRANSFORMS) if relation else None
-        # one guidance closure; each batch's graphs ride in its cond
-        guidance = make_relation_guidance(
-            tokenizer, sampling, generator=torch.Generator(device=device).manual_seed(0)
-        ) if relation else None
-        # num_run > 1: several outputs per condition (`hydra_configs.py:17`)
-        batches = [
-            b
-            for _ in range(max(test_cfg.num_run, 1))
-            for b in batch_iterator(data, B, rng_np, shuffle=False, drop_last=False)
-        ]
-        warmed = set()
-        for batch in batches:
-            cond = get_cond(batch, tokenizer, test_cfg.cond,
-                            model_type=train_cfg.model.name, generator=cond_gen)
-            sc = to_sampler_cond(cond, tokenizer, sampling)
-            if relation:
-                graph = transform(rng_np, dict(batch))
-                sc.relation = RelationData.from_batch(graph)
-            n = batch["label"].shape[0]
+    # a profiler trace of the sampling, where trace_dir asks for one
+    with maybe_trace(test_cfg.trace_dir):
+        if test_cfg.cond == "unconditional":
+            sizes = split_num_samples(test_cfg.num_uncond_samples, B)
+            if test_cfg.warmup and sizes:
+                # kernel builds and allocator warm-up outside the timed region
+                model.sample(gen, sizes[0], sampling=sampling, state=state)
+            for n in sizes:
+                timed(lambda: model.sample(gen, n, sampling=sampling, state=state))
+        else:
+            relation = test_cfg.cond == "relation"
+            transform = compose_transform(RELATION_TRANSFORMS) if relation else None
+            # one guidance closure; each batch's graphs ride in its cond
+            guidance = make_relation_guidance(
+                tokenizer, sampling, generator=torch.Generator(device=device).manual_seed(0)
+            ) if relation else None
+            # num_run > 1: several outputs per condition (`hydra_configs.py:17`)
+            batches = [
+                b
+                for _ in range(max(test_cfg.num_run, 1))
+                for b in batch_iterator(data, B, rng_np, shuffle=False, drop_last=False)
+            ]
+            warmed = set()
+            for batch in batches:
+                cond = get_cond(batch, tokenizer, test_cfg.cond,
+                                model_type=train_cfg.model.name, generator=cond_gen)
+                sc = to_sampler_cond(cond, tokenizer, sampling)
+                if relation:
+                    graph = transform(rng_np, dict(batch))
+                    sc.relation = RelationData.from_batch(graph)
+                n = batch["label"].shape[0]
 
-            def run(rng):
-                return model.sample(rng, n, cond=sc, sampling=sampling, guidance_fn=guidance,
-                                    state=state)
+                def run(rng):
+                    return model.sample(rng, n, cond=sc, sampling=sampling, guidance_fn=guidance,
+                                        state=state)
 
-            if test_cfg.warmup and n not in warmed:
-                run(torch.Generator(device=device).manual_seed(0))
-                warmed.add(n)
-            layouts = timed(lambda: run(gen))
-            if test_cfg.cond in ("partial", "refinement"):
-                seq = torch.as_tensor(cond["seq"])
-                if "bos" in tokenizer.special_tokens:  # decode takes the ids after BOS
-                    seq = seq[:, 1:]
-                inputs.extend(_filter_invalid(tokenizer.decode(seq)))
-            if relation:
-                # the generated boxes behind the canvas, for the violation check
-                S1 = graph["bbox"].shape[1]
-                gen_bbox = np.zeros((n, S1, 4), np.float32)
-                gen_bbox[:, 0] = AddCanvasElement.x
-                gen_bbox[:, 1:] = layouts["bbox"].cpu().numpy()[:, : S1 - 1]
-                v = compute_violation(gen_bbox, graph["label"], graph["edge_index"],
-                                      graph["edge_attr"], graph["edge_mask"])
-                violations.extend(v[~np.isnan(v)].tolist())
+                if test_cfg.warmup and n not in warmed:
+                    run(torch.Generator(device=device).manual_seed(0))
+                    warmed.add(n)
+                layouts = timed(lambda: run(gen))
+                if test_cfg.cond in ("partial", "refinement"):
+                    seq = torch.as_tensor(cond["seq"])
+                    if "bos" in tokenizer.special_tokens:  # decode takes the ids after BOS
+                        seq = seq[:, 1:]
+                    inputs.extend(_filter_invalid(tokenizer.decode(seq)))
+                if relation:
+                    # the generated boxes behind the canvas, for the violation check
+                    S1 = graph["bbox"].shape[1]
+                    gen_bbox = np.zeros((n, S1, 4), np.float32)
+                    gen_bbox[:, 0] = AddCanvasElement.x
+                    gen_bbox[:, 1:] = layouts["bbox"].cpu().numpy()[:, : S1 - 1]
+                    v = compute_violation(gen_bbox, graph["label"], graph["edge_index"],
+                                          graph["edge_attr"], graph["edge_mask"])
+                    violations.extend(v[~np.isnan(v)].tolist())
 
     ms_per_sample = 1e3 * t_total / max(n_total, 1)
     logger.info("%s: %.1f ms per sample", test_cfg.cond, ms_per_sample)

@@ -7,23 +7,31 @@ denoiser's weights in the format `utils.params.load_job` reads: ``params.pt`` ar
 ``final_params.pt`` the last, ``aux_state.pt`` the model's aux state
 saved with the best weights.  ``last_state.pt`` is the full train state
 for resume: weights, AdamW state, the aux state (``LtState``,
-``SeqLenState`` or none), step and the random generators' states.  Every file is written to a temporary name, fsynced and
-moved into place, so a kill mid-write never leaves a truncated checkpoint.
+``SeqLenState`` or none), step and the random generators' states.  Every
+file goes through `utils.params`' writers and readers: a local file is
+written to a temporary name, fsynced and moved into place, so a kill
+mid-write never leaves a truncated checkpoint, and a ``scheme://`` job
+directory goes through ``fsspec``.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict, Mapping
 
 import torch
 
-from layoutdm_tpu_torch.utils.params import (
+# save_config and load_config are this module's surface too, as in the JAX package
+from layoutdm_tpu_torch.utils.params import (  # noqa: F401
     FINAL_PARAMS_FILE,
     PARAMS_FILE,
     aux_from_dict,
     aux_to_dict,
+    ensure_dir,
+    job_path,
+    load_config,
+    load_torch,
     save_aux_state,
+    save_config,
     save_torch,
 )
 from layoutdm_tpu_torch.utils.params import save_params as _save_params
@@ -35,19 +43,24 @@ STATE_FILE = "last_state.pt"
 def save_params(state_dict: Mapping[str, torch.Tensor], job_dir: str,
                 best_or_final: str = "best", aux_state=None) -> str:
     """The weights; with ``aux_state``, the aux state beside them."""
-    os.makedirs(job_dir, exist_ok=True)
-    path = os.path.join(job_dir, PARAMS_FILES[best_or_final])
+    ensure_dir(job_dir)
+    path = job_path(job_dir, PARAMS_FILES[best_or_final])
     _save_params(state_dict, path)
     if aux_state is not None:
         save_aux_state(aux_state, job_dir)
     return path
 
 
+def load_params(job_dir: str, best_or_final: str = "best") -> Dict[str, torch.Tensor]:
+    """The saved weights, on the CPU."""
+    return load_torch(job_path(job_dir, PARAMS_FILES[best_or_final]))
+
+
 def save_train_state(state, job_dir: str, generators: Dict[str, Mapping]) -> str:
     """``state``: a `train.step.TrainState`; ``generators``: named
     generator states (tensors and numbers) to restore on resume."""
-    os.makedirs(job_dir, exist_ok=True)
-    path = os.path.join(job_dir, STATE_FILE)
+    ensure_dir(job_dir)
+    path = job_path(job_dir, STATE_FILE)
     save_torch({
         "params": {k: v.detach().to("cpu") for k, v in state.model.net.state_dict().items()},
         "optimizer": state.optimizer.state_dict(),
@@ -61,9 +74,7 @@ def save_train_state(state, job_dir: str, generators: Dict[str, Mapping]) -> str
 def load_train_state(state, job_dir: str) -> Dict[str, Mapping]:
     """Restore ``state`` in place from ``last_state.pt``; returns the saved
     generator states."""
-    blob = torch.load(
-        os.path.join(job_dir, STATE_FILE), map_location="cpu", weights_only=True
-    )
+    blob = load_torch(job_path(job_dir, STATE_FILE))
     state.model.net.load_state_dict(blob["params"])
     state.optimizer.load_state_dict(blob["optimizer"])
     state.lt_state = aux_from_dict(state.lt_state, blob["aux_state"])

@@ -20,6 +20,19 @@ atomically, so a job killed anywhere resumes from a consistent state.
 The device is CUDA unless ``device=cpu`` is given; without CUDA the trainer
 refuses to start.  Data loading, transforms, schedulers and the events
 writer are the port's copies of the JAX package's numpy-only modules.
+
+``training.num_devices=N`` trains data-parallel over N processes, one a
+device, as the JAX trainer does over an N-device mesh:
+
+    torchrun --nproc_per_node=N -m layoutdm_tpu_torch.train.loop <experiment> <dataset> \
+        training.num_devices=N [k=v ...]
+
+Every rank reads the same batches and draws the same noise; each trains
+on its rows of the batch (`train.step.make_train_step`).  The batch size
+is rounded up to a multiple of N, validation tail batches that do not
+split run whole on every rank, and only rank 0 writes the job directory
+(checkpoints, ``metrics.jsonl``, events, FID probes).  ``num_devices``
+other than 0 (the world size) or the launched world size raises.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from layoutdm_tpu_torch.configs import TrainConfig
 from layoutdm_tpu_torch.data.datasets import load_dataset
@@ -45,15 +59,16 @@ from layoutdm_tpu_torch.train.schedulers import (
 from layoutdm_tpu_torch.utils.tb import EventsWriter
 from layoutdm_tpu_torch.factory import build_model, build_tokenizer
 from layoutdm_tpu_torch.train import checkpoint as ckpt
+from layoutdm_tpu_torch.parallel.mesh import batch_shards, make_mesh, replicate
 from layoutdm_tpu_torch.train.step import (
-    eval_loss,
     init_train_state,
+    make_eval_step,
     make_optimizer,
+    make_train_step,
     set_learning_rate,
-    train_step,
 )
 from layoutdm_tpu_torch.utils.device import require_device
-from layoutdm_tpu_torch.utils.params import save_config, write_atomic
+from layoutdm_tpu_torch.utils.params import write_atomic
 
 logger = logging.getLogger(__name__)
 
@@ -80,9 +95,12 @@ def _restore_generators(states: Dict, gen: torch.Generator,
 
 
 def _render_samples(model, gen, path: str, num_categories: int, tb, epoch: int) -> None:
+    """Sample 16 layouts from ``gen``; with ``tb`` (rank 0), render them."""
     from layoutdm_tpu_torch.utils.visualization import save_image
 
-    layouts = model.sample(gen, 16)
+    layouts = model.sample(gen, 16)  # every rank, so that the generators stay in step
+    if tb is None:
+        return
     save_image({k: v.cpu().numpy() for k, v in layouts.items()}, path, num_categories)
     from PIL import Image
 
@@ -117,6 +135,23 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
     state = init_train_state(model, optimizer, cfg.training.grad_norm_clip)
     n_params = sum(p.numel() for p in model.net.parameters())
     logger.info("params: %.2fM on %s", n_params / 1e6, device)
+
+    # the data-parallel mesh (JAX `train/loop.py:66-71`): without a process
+    # group and with num_devices 0 or 1, one process trains alone
+    n_dev = cfg.training.num_devices
+    mesh = make_mesh(n_dev) if dist.is_initialized() or n_dev > 1 else None
+    n_data = 1 if mesh is None else batch_shards(mesh)
+    is_main = mesh is None or dist.get_rank() == 0
+    B = cfg.data.batch_size
+    if B % n_data:
+        B = (B // n_data + 1) * n_data
+        logger.info("batch_size rounded to %d for %d-way DP", B, n_data)
+    if mesh is not None:
+        replicate(model.net.state_dict())
+    train_step = make_train_step(model, optimizer, mesh)
+    eval_step = make_eval_step(model, mesh)
+    # unsharded step for validation tail batches that do not split
+    eval_step_tail = make_eval_step(model, None)
     scheduler = build_scheduler(
         cfg.scheduler.name,
         cfg.optimizer.lr,
@@ -129,9 +164,11 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
     )
 
     job_dir = cfg.job_dir
-    save_config(cfg, job_dir)
     log_path = os.path.join(job_dir, "metrics.jsonl")
-    tb = EventsWriter(os.path.join(job_dir, "logs"))
+    tb = None  # rank 0 writes the job directory
+    if is_main:
+        ckpt.save_config(cfg, job_dir)
+        tb = EventsWriter(os.path.join(job_dir, "logs"))
     best_val = float("inf")
     start_epoch = 0
 
@@ -147,7 +184,6 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
             set_learning_rate(state, meta["scheduler"]["lr"])
         logger.info("resumed from epoch %d (best_val %.4f)", start_epoch, best_val)
 
-    B = cfg.data.batch_size
     epochs = 2 if cfg.debug else cfg.training.epochs
     fid_cache = {}  # FID extractor + val features, loaded once per run
     totals = {}
@@ -168,8 +204,9 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
         val_losses, n_val = 0.0, 0
         for batch in batch_iterator(val_data, B, rng_np, transform, drop_last=False):
             bsz = batch["label"].shape[0]
+            step_fn = eval_step if bsz % n_data == 0 else eval_step_tail
             tokens = model.preprocess(batch, gen)
-            val_losses += bsz * float(eval_loss(model, state.lt_state, tokens, gen))
+            val_losses += bsz * float(step_fn(state.lt_state, tokens, gen))
             n_val += bsz
             if cfg.debug and n_val >= 2 * B:
                 break
@@ -185,22 +222,23 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
             "sec": time.time() - t0,
             **{f"train_{k}": v for k, v in totals.items()},
         }
-        with open(log_path, "a") as f:
-            f.write(json.dumps(row) + "\n")
         logger.info("epoch %d: %s", epoch, row)
-        tb.scalar("lr", lr, epoch)
-        tb.scalar("val/loss", val_loss, epoch)
-        for k, v in totals.items():
-            tb.scalar(f"train/{k}", v, epoch)
-
         if val_loss < best_val:
             best_val = val_loss
-            ckpt.save_params(model.net.state_dict(), job_dir, "best", state.lt_state)
-        ckpt.save_train_state(state, job_dir, _generator_states(gen, rng_np))
-        meta = {"epoch": epoch, "best_val": best_val,
-                "scheduler": scheduler_state(scheduler)}
-        # the commit record of the state files above
-        write_atomic(meta_path, json.dumps(meta).encode())
+            if is_main:
+                ckpt.save_params(model.net.state_dict(), job_dir, "best", state.lt_state)
+        if is_main:
+            with open(log_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+            tb.scalar("lr", lr, epoch)
+            tb.scalar("val/loss", val_loss, epoch)
+            for k, v in totals.items():
+                tb.scalar(f"train/{k}", v, epoch)
+            ckpt.save_train_state(state, job_dir, _generator_states(gen, rng_np))
+            meta = {"epoch": epoch, "best_val": best_val,
+                    "scheduler": scheduler_state(scheduler)}
+            # the commit record of the state files above
+            write_atomic(meta_path, json.dumps(meta).encode())
 
         interval = cfg.training.sample_plot_epoch_interval
         if interval > 0 and (epoch + 1) % interval == 0:
@@ -215,7 +253,7 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
         # periodic FID against the val split (`main.py:153-193`), only when
         # extractor weights are available
         fid_every = max(epochs // 10, 1)
-        if (epoch + 1) % fid_every == 0 and os.path.isdir(os.path.join(
+        if is_main and (epoch + 1) % fid_every == 0 and os.path.isdir(os.path.join(
             cfg.fid_weight_dir, f"{cfg.dataset.name}-max{cfg.dataset.max_seq_length}"
         )):
             try:
@@ -229,11 +267,12 @@ def train(cfg: TrainConfig, device="cuda") -> Dict:
             except Exception as e:  # as the JAX probe: a probe never kills training
                 logger.warning("FID eval failed: %s", e, exc_info=True)
 
-    tb.close()
-    ckpt.save_params(model.net.state_dict(), job_dir, "final")
     result = {"best_val_loss": best_val, "final_train": totals}
-    with open(os.path.join(job_dir, "result.json"), "w") as f:
-        json.dump(result, f)
+    if is_main:
+        tb.close()
+        ckpt.save_params(model.net.state_dict(), job_dir, "final")
+        with open(os.path.join(job_dir, "result.json"), "w") as f:
+            json.dump(result, f)
     return result
 
 
@@ -264,9 +303,6 @@ def _compute_training_fid(cfg, model, gen, val_data, n_samples=256, cache=None) 
 
 def main(argv=None):
     import argparse
-    import copy
-
-    from layoutdm_tpu_torch.configs import build_train_config
 
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(
@@ -285,6 +321,22 @@ def main(argv=None):
         else:
             overrides.append(o)
     require_device(device)
+    launched = "LOCAL_RANK" in os.environ and not dist.is_initialized()
+    if launched:  # torchrun: one process a device, the group from its environment
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group("nccl" if torch.device(device).type == "cuda" else "gloo")
+    try:
+        return _run(a, overrides, device)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def _run(a, overrides, device):
+    import copy
+
+    from layoutdm_tpu_torch.configs import build_train_config
 
     # multi-seed sweep: `seed=0,1,2` trains one job per seed into seed_<i>
     seed_ov = [o for o in overrides if o.startswith("seed=")]

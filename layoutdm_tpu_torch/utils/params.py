@@ -15,6 +15,14 @@ A job directory holds ``config.json`` (the configs' ``to_dict``),
 ``aux_state.pt`` (the model's aux state beside the best weights: the
 element-count histogram MaskGIT and BLT sample from, LayoutDM's Lt
 buffers), each written to a temporary name, fsynced and moved into place.
+A job directory may be remote (``gs://``, ``s3://``, ``memory://`` ...,
+any ``scheme://`` path), as in the JAX package (`train/checkpoint.py:22-60`,
+after the reference's `common/util.py:47-64`): such paths go through
+``fsspec``, imported only for them, and are written directly (object
+stores commit an object on close).  Without ``fsspec`` a remote path
+raises; a local one never imports it.  Every reader and writer of a job
+directory (the trainer's checkpoints, `sample_cli`, the service) goes
+through the helpers here.
 
 `load_jax_job` reads a job of the JAX package's trainer (``config.json``,
 ``{best,final}_model.msgpack``, ``aux_state.msgpack``) with the port's own
@@ -80,8 +88,52 @@ def with_own_buffers(sd: Mapping[str, torch.Tensor], net: torch.nn.Module) -> Di
                if k in own and k not in sd}, **sd}
 
 
+def is_remote(path: str) -> bool:
+    return "://" in path
+
+
+def _fsspec(path: str):
+    try:
+        import fsspec
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path}: a remote job directory needs the fsspec package, "
+            "which is not installed; use a local directory"
+        ) from e
+    return fsspec
+
+
+def open_file(path: str, mode: str):
+    """A local file, or a remote one through fsspec."""
+    if is_remote(path):
+        return _fsspec(path).open(path, mode).open()
+    return open(path, mode)
+
+
+def path_exists(path: str) -> bool:
+    if is_remote(path):
+        fs, inner = _fsspec(path).core.url_to_fs(path)
+        return fs.exists(inner)
+    return os.path.exists(path)
+
+
+def ensure_dir(d: str) -> None:
+    if not is_remote(d):
+        os.makedirs(d, exist_ok=True)
+
+
+def job_path(job_dir: str, name: str) -> str:
+    return job_dir.rstrip("/") + "/" + name if is_remote(job_dir) else os.path.join(job_dir, name)
+
+
 def write_atomic(path: str, data: bytes) -> None:
-    """A kill mid-write never leaves a truncated file at ``path``."""
+    """A kill mid-write never leaves a truncated file at ``path``: local
+    files go through a temporary name and a rename, remote ones are written
+    directly."""
+    if is_remote(path):
+        with open_file(path, "wb") as f:
+            f.write(data)
+        return
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -96,10 +148,21 @@ def save_torch(obj, path: str) -> None:
     write_atomic(path, buf.getvalue())
 
 
+def load_torch(path: str):
+    """A file of `save_torch`, its tensors on the CPU."""
+    with open_file(path, "rb") as f:
+        return torch.load(io.BytesIO(f.read()), map_location="cpu", weights_only=True)
+
+
 def save_config(cfg, job_dir: str) -> None:
-    os.makedirs(job_dir, exist_ok=True)
+    ensure_dir(job_dir)
     text = json.dumps(_configs.to_dict(cfg), indent=2)
-    write_atomic(os.path.join(job_dir, CONFIG_FILE), text.encode())
+    write_atomic(job_path(job_dir, CONFIG_FILE), text.encode())
+
+
+def load_config(job_dir: str):
+    with open_file(job_path(job_dir, CONFIG_FILE), "r") as f:
+        return _configs.train_config_from_dict(json.load(f))
 
 
 def save_params(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
@@ -108,17 +171,12 @@ def save_params(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
 
 def save_job(cfg, state_dict: Mapping[str, torch.Tensor], job_dir: str) -> None:
     save_config(cfg, job_dir)
-    save_params(state_dict, os.path.join(job_dir, PARAMS_FILE))
+    save_params(state_dict, job_path(job_dir, PARAMS_FILE))
 
 
 def load_job(job_dir: str):
     """-> (TrainConfig, state dict on the CPU)."""
-    with open(os.path.join(job_dir, CONFIG_FILE)) as f:
-        cfg = _configs.train_config_from_dict(json.load(f))
-    sd = torch.load(
-        os.path.join(job_dir, PARAMS_FILE), map_location="cpu", weights_only=True
-    )
-    return cfg, sd
+    return load_config(job_dir), load_torch(job_path(job_dir, PARAMS_FILE))
 
 
 def aux_to_dict(state) -> Dict[str, torch.Tensor]:
@@ -142,16 +200,16 @@ def aux_from_dict(template, blob: Mapping[str, Any]):
 
 
 def save_aux_state(state, job_dir: str) -> None:
-    save_torch(aux_to_dict(state), os.path.join(job_dir, AUX_FILE))
+    save_torch(aux_to_dict(state), job_path(job_dir, AUX_FILE))
 
 
 def load_aux_state(template, job_dir: str):
     """The job's aux state in ``template``'s type, or ``template`` when the
     job has none (weights imported without one)."""
-    path = os.path.join(job_dir, AUX_FILE)
-    if template is None or not os.path.exists(path):
+    path = job_path(job_dir, AUX_FILE)
+    if template is None or not path_exists(path):
         return template
-    return aux_from_dict(template, torch.load(path, map_location="cpu", weights_only=True))
+    return aux_from_dict(template, load_torch(path))
 
 
 def load_jax_job(job_dir: str, out_dir: str):

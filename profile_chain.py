@@ -10,8 +10,10 @@ package's switches in the environment (`factory.build_model`):
 ``LAYOUTDM_TPU_FUSED_BLOCK=1`` and ``LAYOUTDM_TPU_FUSED_FFN=1`` give the
 fused path (K4 + K3), ``LAYOUTDM_TPU_ATTN_V2=1`` the block-diagonal
 attention (K5), ``LAYOUTDM_TPU_SMAJOR=1`` the S-major attention (K6), none
-of them K1 and the unfused FFN; ``path`` names it in every row.  Per batch
-size it reports:
+of them K1 and the unfused FFN; ``LAYOUTDM_TPU_INT8=1`` swaps the
+denoiser for the int8 serving mirror (`models.int8_serving`: int8 GEMMs,
+K1 attention), as the JAX package's ``bench.py`` does; ``path`` names it
+in every row.  Per batch size it reports:
 
 - ``wall_ms_per_step``: host clock around a chain run without the
   profiler, synchronised;
@@ -49,8 +51,15 @@ def profile_batch(batch: int, steps: int, out_dir: str, device="cuda") -> dict:
     from layoutdm_tpu_torch.factory import build_model
     from layoutdm_tpu_torch.ops.samplers import row_gumbel
 
+    from layoutdm_tpu_torch.models.int8_serving import can_use_int8, make_int8_predict_start
+
     cfg = flagship_config("bfloat16")
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(4))
+    path, denoiser = model.denoiser_path, model.net
+    if can_use_int8(model.backbone_cfg, cfg.model.pos_emb):
+        model._predict_start = make_int8_predict_start(model)
+        denoiser = model._predict_start.logits  # the mirror, as `model.net`: no head
+        path = "int8 (K1)"
     seeds = torch.arange(batch, dtype=torch.int64)
 
     def chain():
@@ -82,7 +91,7 @@ def profile_batch(batch: int, steps: int, out_dir: str, device="cuda") -> dict:
     with torch.inference_mode():
         log_x0 = model._predict_start(ids, t)
         components = {
-            "denoiser_ms": cuda_ms(lambda: model.net(ids, t)),
+            "denoiser_ms": cuda_ms(lambda: denoiser(ids, t)),
             "posterior_ms": cuda_ms(lambda: model.q.q_posterior_ids(log_x0, ids, t)),
             "row_gumbel_ms": cuda_ms(lambda: row_gumbel(cuda_seeds, 0, log_x0.shape)),
             "argmax_ms": cuda_ms(lambda: torch.argmax(log_x0, dim=-1)),
@@ -92,7 +101,7 @@ def profile_batch(batch: int, steps: int, out_dir: str, device="cuda") -> dict:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
     return {
         "B": batch,
-        "path": model.denoiser_path,
+        "path": path,
         "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "kernel_ms_per_step": kernel_ms / steps,

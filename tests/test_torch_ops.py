@@ -165,6 +165,9 @@ def test_port_imports_no_jax(what):
             for p in pkg.rglob("*.py")
         )
         assert "layoutdm_tpu_torch.serve_cli" in mods and len(mods) >= 30
+        assert {"layoutdm_tpu_torch.utils.profiling", "layoutdm_tpu_torch.models.int8_serving",
+                "layoutdm_tpu_torch.parallel", "layoutdm_tpu_torch.parallel.mesh",
+                "layoutdm_tpu_torch.parallel.tp", "layoutdm_tpu_torch.clustering_cli"} <= set(mods)
     else:
         mods = [what]
     code = (

@@ -86,6 +86,8 @@ def _ground_truth(job):
 def test_cuda_by_default_and_no_trace(job, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([f"job_dir={job}", f"result_dir={tmp_path}", "cond=c"])
-    cfg = tconfigs.TestConfig(job_dir=job, cond="c", trace_dir=str(tmp_path / "trace"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        run_sampling(cfg, job, device="cpu")
+    # trace_dir is ported: the run writes a profiler trace there
+    cfg = tconfigs.TestConfig(job_dir=job, cond="c", trace_dir=str(tmp_path / "trace"),
+                              debug_num_samples=2, max_batch_size=2, num_timesteps=2)
+    run_sampling(cfg, job, device="cpu")
+    assert [p.name for p in (tmp_path / "trace").iterdir()] == [f"trace_{os.getpid()}.json"]
