@@ -45,7 +45,9 @@ no extractor weights are in the repo), and checks them:
                 against the default path (K1), float32;
 5. train        (a) one float32 step's parameter gradients through K1 and
                 K2 against the plain versions, same weights and noise;
-                (b) bfloat16 train steps at B=1024: samples/s, peak memory,
+                (b) bfloat16 train steps at B=1024, timed by the bench's
+                `headline.train_rates` (a warm-up run and 3 timed runs of
+                10 steps): samples/s (median and spread), peak memory,
                 K1/K2 launches = layers x steps, and the same steps with the
                 plain attention; (c) 20 steps on one batch lower its loss;
 5a. zoo         every other family (`phase_zoo`): MaskGIT, BLT, RUITE and
@@ -77,7 +79,9 @@ no extractor weights are in the repo), and checks them:
                 refinement requests, seed determinism, request coalescing,
                 the kernel's launch count over the service's runs, and
                 batch-1 latency at T=25 and T=100;
-8. throughput   unconditional sampling at B=1024, T=100, bfloat16;
+8. throughput   per-row-seed unconditional sampling at B=1024, T=100,
+                bfloat16, timed by the bench's `headline.chain_rows_per_s`
+                (a warm-up chain and 3 timed chains: median and spread);
 9. fused_serve, fused_throughput, v2_serve, v2_throughput, smajor_serve,
                 smajor_throughput: phases 7 and 8 on each path, its kernels'
                 launches = layers x chain steps and no other attention or
@@ -97,7 +101,21 @@ no extractor weights are in the repo), and checks them:
                 element is NaN, as in the JAX package), seconds split
                 between feature extraction, each metric and the rest;
 13. render_cli  `python -m layoutdm_tpu_torch.render_cli` on the task-c
-                pickle: a non-blank grid and one CSV row per layout.
+                pickle: a non-blank grid and one CSV row per layout;
+14. bench       the port's bench entry points (`layoutdm_tpu_torch.bench`)
+                at full width: the headline on the default path (T=100,
+                B=1024, generator and per-row-seed regimes, FLOPs, MFU
+                against the bf16 peak and the measured GEMM ceiling) with
+                its train (B=1024) and S=500 (B=256) rows, K1 and K2
+                launched exactly layers x steps over their chains and
+                train steps; the serve bench against a child ``serve_cli`` on
+                a random-weight flagship job at T=25 and T=100 (16
+                concurrent batch-1 clients take fewer runs than requests);
+                the zoo at 2 calls a run (no relation row); the S=500
+                pipeline for one epoch
+                (six pickles, scored); the int8 and bf16 GEMM chains; a
+                10-step traced chain summarised by kernel (K1 named).
+                Every row names the card and its power limit and is finite.
 
 Three more (run in this order: parallel after train, int8 after the
 throughput phases, trace after sample_cli):
@@ -131,6 +149,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -142,6 +161,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from layoutdm_tpu_torch.bench.common import cuda_ms
 
 F32_TOL = 1e-4  # kernel vs plain, float32 (summation order only)
 # K1, K5, K6 against their plain versions in bfloat16.  Both round the
@@ -235,22 +256,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 25, warmup: int = 5) -> float:
-    """Median device time of ``fn()`` in ms, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def sdpa_views(qkv: torch.Tensor, num_heads: int):
     """q, k, v of a packed (B, S, 3D) slab as (B, H, S, hd) views, the
     layout ``F.scaled_dot_product_attention`` takes."""
@@ -272,14 +277,10 @@ def device_kernels(fn) -> list:
 
 
 def flagship_config(dtype: str):
-    from layoutdm_tpu_torch.configs import build_train_config
+    from layoutdm_tpu_torch.bench.headline import flagship_config
 
-    # the port's config dataclasses (a copy of the JAX package's); linear
-    # quantization: the repo carries no Rico25 clustering weights
-    return build_train_config(
-        "layoutdm", "rico25",
-        ["data.bbox_quantization=linear", f"model.dtype={dtype}"],
-    )
+    # linear quantization: the repo carries no Rico25 clustering weights
+    return flagship_config(dtype=dtype)
 
 
 # --------------------------------------------------------------------------
@@ -943,13 +944,9 @@ def plain_attention(fn, *args):
 
 def random_layouts(rs: np.random.RandomState, B: int, cfg) -> dict:
     """Dense layout batch of the config's shape, 1..max elements per row."""
-    S, C = cfg.dataset.max_seq_length, cfg.dataset.num_categories
-    n = rs.randint(1, S + 1, (B, 1))
-    return {
-        "label": rs.randint(0, C, (B, S)).astype(np.int32),
-        "bbox": rs.rand(B, S, 4).astype(np.float32),
-        "mask": np.arange(S)[None] < n,
-    }
+    from layoutdm_tpu_torch.bench.common import random_layouts
+
+    return random_layouts(rs, B, cfg.dataset.max_seq_length, cfg.dataset.num_categories)
 
 
 def profile_steps(run, n: int) -> dict:
@@ -977,8 +974,10 @@ def profile_steps(run, n: int) -> dict:
 
 
 def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
-                warmup=2, plain_steps=5, overfit_batch=256, overfit_steps=20,
+                runs=3, plain_steps=5, overfit_batch=256, overfit_steps=20,
                 profile_steps_n=2, smi="") -> dict:
+    from layoutdm_tpu_torch.bench.common import spread
+    from layoutdm_tpu_torch.bench.headline import train_rates
     from layoutdm_tpu_torch.factory import build_model, build_tokenizer
     from layoutdm_tpu_torch.ops import attention
     from layoutdm_tpu_torch.train.step import (
@@ -1032,21 +1031,17 @@ def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
 
     torch.cuda.reset_peak_memory_stats()
     attention.LAUNCHES = attention.LAUNCHES_BWD = 0
-    run(warmup)
-    t0 = time.perf_counter()
-    metrics = run(steps)
-    sec = time.perf_counter() - t0
+    timed = train_rates(state, batches, gen, batch, steps, runs, device)  # losses finite
     launches, launches_bwd = attention.LAUNCHES, attention.LAUNCHES_BWD
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     layers = model.backbone_cfg.num_layers
-    if launches_bwd != layers * (warmup + steps) or launches != launches_bwd:
+    backward_steps = steps * (runs + 1)  # the warm-up run too
+    if launches_bwd != layers * backward_steps or launches != launches_bwd:
         raise AssertionError(
             f"train launches K1 {launches} / K2 {launches_bwd} != "
-            f"num_layers x steps = {layers * (warmup + steps)}"
+            f"num_layers x steps = {layers * backward_steps}"
         )
-    losses = [m["loss"].item() for m in metrics]
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite train losses {losses}")
+    ms_per_step = 1e3 * batch / timed["value"]
     profile = profile_steps(run, profile_steps_n)
     plain_attention(run, 1)
     t0 = time.perf_counter()
@@ -1068,18 +1063,20 @@ def phase_train(device="cuda", cfg32=None, cfg16=None, batch=1024, steps=10,
                         "rel_err": grad_err / scale, "tol": GRAD_TOL},
         "batch": batch,
         "dtype": "bfloat16",
-        "steps_timed": steps,
-        "samples_per_s": batch * steps / sec,
-        "ms_per_step": 1e3 * sec / steps,
+        "steps_a_run": steps,
+        "samples_per_s": timed["value"],
+        "runs": timed["runs"],
+        "spread": spread(timed["runs"]),
+        "ms_per_step": ms_per_step,
         "plain_samples_per_s": batch * plain_steps / plain_sec,
         "plain_ms_per_step": 1e3 * plain_sec / plain_steps,
         "peak_mem_gib": peak_gib,
         "profile": profile,
-        "idle_share": 1.0 - profile["kernel_ms_per_step"] / (1e3 * sec / steps),
+        "idle_share": 1.0 - profile["kernel_ms_per_step"] / ms_per_step,
         "launches": launches,
         "launches_bwd": launches_bwd,
-        "backward_steps": warmup + steps,
-        "train_losses": losses,
+        "backward_steps": backward_steps,
+        "train_losses": timed["losses"],
         "overfit": {"batch": overfit_batch, "steps": overfit_steps,
                     "eval_loss_before": before, "eval_loss_after": after,
                     "train_loss_first": fit[0], "train_loss_last": fit[-1]},
@@ -2156,19 +2153,20 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
     return out
 
 
-def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", path="default") -> dict:
+def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", path="default",
+                     runs=3) -> dict:
+    """Layouts/s of the per-row-seed chain on ``path``: the bench's
+    `headline.chain_rows_per_s` (one warm-up chain, ``runs`` timed), the
+    last chain's layouts decoded and checked."""
+    from layoutdm_tpu_torch.bench.common import spread
+    from layoutdm_tpu_torch.bench.headline import chain_rows_per_s
     from layoutdm_tpu_torch.factory import build_model
 
     cfg = cfg or flagship_config("bfloat16")
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(4),
                         **path_switches(path))
-    seeds = torch.arange(batch, dtype=torch.int64)
-    model.sample(seeds, batch, num_timesteps_eval=5)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = model.sample(seeds, batch)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
+    r = chain_rows_per_s(model, batch, runs, device, seed=0, per_row=True)
+    out = model.tokenizer.decode(r["ids"])
     if not (out["bbox"].shape == (batch, cfg.dataset.max_seq_length, 4)
             and torch.isfinite(out["bbox"]).all()):
         raise AssertionError("throughput run produced malformed layouts")
@@ -2177,8 +2175,9 @@ def phase_throughput(device="cuda", batch=1024, cfg=None, smi="", path="default"
         "path": model.denoiser_path,
         "batch": batch,
         "num_timesteps": model.q.num_timesteps,
-        "seconds": sec,
-        "layouts_per_s": batch / sec,
+        "layouts_per_s": r["value"],
+        "runs": r["runs"],
+        "spread": spread(r["runs"]),
         "nvidia_smi": smi,
     }
     emit(res)
@@ -2435,8 +2434,6 @@ def phase_trace(work_dir: str, device="cuda", num_samples=16, num_timesteps=20) 
     """`sample_cli` with ``trace_dir`` on the train_cli job (default path):
     a Chrome trace whose kernels include K1's CUDA symbol (K6 shares the
     body with the bias template flag on)."""
-    import re
-
     from layoutdm_tpu_torch.sample_cli import main as sample_main
 
     trace_dir = f"{work_dir}/trace"
@@ -2458,6 +2455,132 @@ def phase_trace(work_dir: str, device="cuda", num_samples=16, num_timesteps=20) 
            "k1_events": sum(1 for e in events if e.get("name") in k1), "seconds": sec}
     emit(out)
     return out
+
+
+ROW_KEYS = ("device", "card", "power_limit_w", "runs", "spread")
+HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "batch", "est_gflops_per_layout",
+                 "achieved_tflops", "gemm_ceiling_tflops", "mfu_vs_gemm_ceiling", "mfu")
+TRAIN_ROW_KEYS = ("metric", "value", "unit", "batch", "ms_per_step", "achieved_tflops",
+                  "gemm_ceiling_tflops", "mfu_vs_gemm_ceiling", "mfu")
+SERVE_ROW_KEYS = ("t_eval", "threads", "batch_size", "requests", "req_per_s", "layouts_per_s",
+                  "p50_ms", "p95_ms", "program_runs")
+
+
+def check_bench_row(what: str, r: dict, keys=(), nan_ok=()) -> dict:
+    """A bench row holds ``keys`` and `ROW_KEYS`, names the device it ran
+    on, and every number in it is finite (but those under a key in
+    ``nan_ok``)."""
+    missing = [k for k in (*keys, *ROW_KEYS) if k not in r]
+
+    def numbers(x, key=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from numbers(v, k)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                yield from numbers(v, key)
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            yield key, x
+
+    bad = [k for k, x in numbers(r) if not np.isfinite(x) and not k.startswith(nan_ok or "\0")]
+    if missing or bad or not r.get("runs"):
+        raise AssertionError(f"bench {what}: missing {missing}, non-finite {bad}: {r}")
+    return r
+
+
+def phase_bench(work_dir: str, device="cuda", overrides=(), batch=1024, train_batch=1024,
+                train_steps=20, runs=3, publaynet_batch=256, ladder=(25,), max_batch=64,
+                zoo_batch=256, zoo_iters=2, zoo_ladder=(25, 50, 100), e2e_epochs=1,
+                e2e_overrides=(), e2e_elements=100, int8_rows=128000, trace_batch=256,
+                trace_steps=10) -> dict:
+    """The port's bench entry points (`layoutdm_tpu_torch.bench`) at full
+    width: the headline on the default path (T=100, B=1024, its MFU) with
+    its per-row-seed, train and S=500 rows; the serve bench on a
+    random-weight flagship job in a child service at T=25 and T=100; the
+    zoo at ``zoo_iters`` calls a run; the S=500 pipeline for one epoch
+    (six pickles); the int8 GEMM chains; a traced chain of
+    ``trace_steps`` steps, summarised.  Every row well formed and finite,
+    K1 and K2 launched by the headline exactly as often as its chains and
+    train steps run them, coalescing under 16 clients."""
+    from layoutdm_tpu_torch.bench import e2e_bigshape, headline, int8, profile_trace, serve, zoo
+
+    out = os.path.join(work_dir, "bench")
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = headline.run(device, batch=batch, runs=runs, train_batch=train_batch,
+                        train_steps=train_steps, publaynet_batch=publaynet_batch,
+                        overrides=overrides, out=out)
+    seconds = {"headline": time.perf_counter() - t0}
+    # K1 once a layer and chain step: a warm-up and ``runs`` timed chains in
+    # each of the two regimes and at S=500, and once a layer and train step
+    # (dropout 0) in the train row's warm-up and timed runs; K2 once a layer
+    # and train step.  The wrappers count only where they launch: on the card
+    rico = headline.flagship_config(overrides=overrides)
+    pub = headline.flagship_config("publaynet", 100, overrides)
+    chain_steps = [c.backbone.num_layers * c.model.num_timesteps for c in (rico, rico, pub)]
+    chains = sum(chain_steps) * (1 + runs)
+    train = rico.backbone.num_layers * train_steps * (1 + runs)
+    want = {"K1": chains + train, "K2": train} if device != "cpu" else {"K1": 0, "K2": 0}
+    launches = {k: launch_counts()[k] for k in want}
+    if launches != want:
+        raise AssertionError(f"bench headline launches {launches}, {want} wanted")
+    for r, keys in zip(rows, (HEADLINE_KEYS, HEADLINE_KEYS[:6], TRAIN_ROW_KEYS,
+                              HEADLINE_KEYS + ("seq_tokens",))):
+        check_bench_row(r["metric"], r, keys if device != "cpu" else
+                        [k for k in keys if k not in ("achieved_tflops", "gemm_ceiling_tflops",
+                                                      "mfu_vs_gemm_ceiling", "mfu")])
+
+    t0 = time.perf_counter()
+    job = serve.write_random_job(os.path.join(work_dir, "bench_job"),
+                                 headline.flagship_config(overrides=overrides), seed=3)
+    serve_rows = serve.run(job_dir=job, ladder=ladder, max_batch_size=max_batch, device=device,
+                           out=out)
+    seconds["serve"] = time.perf_counter() - t0
+    for r in serve_rows:
+        check_bench_row("serve", r, SERVE_ROW_KEYS)
+        if r["threads"] > 1 and not r["program_runs"] < r["requests"]:
+            raise AssertionError(f"{r['requests']} concurrent requests took "
+                                 f"{r['program_runs']} runs: no coalescing")
+
+    t0 = time.perf_counter()
+    # the relation-guided row is left to the bench itself: the v2 and
+    # smajor serve phases and sample_cli already guide chains here
+    zoo_rows = zoo.run(device, batch=zoo_batch, iters=zoo_iters, ladder=zoo_ladder,
+                       relation=False, overrides=overrides, out=out)
+    seconds["zoo"] = time.perf_counter() - t0
+    for r in zoo_rows:
+        check_bench_row(r["experiment"], r, ("ms_per_batch", "layouts_per_sec"))
+
+    t0 = time.perf_counter()
+    e2e = e2e_bigshape.run(os.path.join(out, "e2e_bigshape"), epochs=e2e_epochs,
+                           max_elements=e2e_elements, device=device, overrides=e2e_overrides)
+    seconds["e2e_bigshape"] = time.perf_counter() - t0
+    # a pickle of empty layouts leaves its Wasserstein pair NaN (as in JAX)
+    check_bench_row("e2e_bigshape", e2e, ("train_s", "best_val_loss", "tasks", "eval_s",
+                                          "metrics"), nan_ok="wdist_")
+    if e2e["artifacts"]["pickles"] != len(SAMPLE_TASKS):
+        raise AssertionError(f"e2e_bigshape wrote {e2e['artifacts']['pickles']} pickles")
+
+    t0 = time.perf_counter()
+    int8_rows = int8.run(device, rows=int8_rows, out=out)
+    seconds["int8"] = time.perf_counter() - t0
+    for r in int8_rows:
+        check_bench_row(r["metric"], r, ("value",))
+
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(out, "trace")
+    profile_trace.capture(trace_dir, trace_batch, trace_steps, device=device, overrides=overrides)
+    trace = check_bench_row("trace", profile_trace.summarize(trace_dir),
+                            ("kernel_ms", "kernels", "top"))
+    seconds["trace"] = time.perf_counter() - t0
+    if device != "cpu" and not any(re.search(K1_SYMBOL, k["kernel"]) for k in trace["top"]):
+        raise AssertionError(f"trace summary names no K1 kernel: {trace['top'][:5]}")
+
+    res = {"phase": "bench", "headline": rows, "serve": serve_rows, "zoo": zoo_rows,
+           "e2e_bigshape": e2e, "int8": int8_rows, "trace": trace, "launches": launches,
+           "seconds": seconds}
+    emit({"phase": "bench", "seconds": seconds, "launches": launches})
+    return res
 
 
 def main() -> int:
@@ -2504,6 +2627,7 @@ def main() -> int:
         run(phase_fidnet, work_dir=work)
         run(phase_eval_cli, work_dir=work)
         run(phase_render_cli, work_dir=work)
+        run(phase_bench, work_dir=work)
 
     # launches on each kernel's main path
     launches = {

@@ -41,7 +41,8 @@ from collections import defaultdict
 
 import torch
 
-from chip_smoke import cuda_ms, flagship_config
+from chip_smoke import flagship_config
+from layoutdm_tpu_torch.bench.common import cuda_ms
 
 
 def profile_batch(batch: int, steps: int, out_dir: str, device="cuda") -> dict:

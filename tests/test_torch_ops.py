@@ -168,6 +168,9 @@ def test_port_imports_no_jax(what):
         assert {"layoutdm_tpu_torch.utils.profiling", "layoutdm_tpu_torch.models.int8_serving",
                 "layoutdm_tpu_torch.parallel", "layoutdm_tpu_torch.parallel.mesh",
                 "layoutdm_tpu_torch.parallel.tp", "layoutdm_tpu_torch.clustering_cli"} <= set(mods)
+        assert {f"layoutdm_tpu_torch.bench.{m}" for m in (
+            "common", "flops", "headline", "train", "serve", "zoo", "e2e_bigshape",
+            "profile_trace", "int8")} <= set(mods)
     else:
         mods = [what]
     code = (
