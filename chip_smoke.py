@@ -117,8 +117,9 @@ no extractor weights are in the repo), and checks them:
                 10-step traced chain summarised by kernel (K1 named).
                 Every row names the card and its power limit and is finite.
 
-Three more (run in this order: parallel after train, int8 after the
-throughput phases, trace after sample_cli):
+Five more (run in this order: parallel after train, dryrun after
+parallel, demo after train_cli, int8 after the throughput phases, trace
+after sample_cli):
 5c. parallel    a world-1 process group (NCCL, no torchrun): the
                 data-parallel and shard_map train steps at B=1024, bf16,
                 each against `train_step` on the same batches and noise,
@@ -135,7 +136,17 @@ throughput phases, trace after sample_cli):
                 (K1 launched layers x steps, valid layouts) beside the
                 default path, layouts/s, and ms a step at B=1 and 64;
 10a. trace      `sample_cli` with `trace_dir`: a Chrome trace that names
-                K1's CUDA symbol.
+                K1's CUDA symbol;
+5d. dryrun      the entry points of `graft_entry`, flagship
+                width, float32: `entry`'s forward (K1 once a layer), and
+                `dryrun_multichip(1)` on one spawned NCCL rank: the
+                data-parallel loss equal to `train_step`'s, the gathered
+                chain token-identical to one process's, the gathered
+                FIDNetV3 features within 1e-4, K1 / K2 launched layers x
+                forwards and layers x train steps;
+6a. demo        `python -m layoutdm_tpu_torch.demo` (in process) on the
+                train_cli job and with random weights: the seven files of
+                each, a GIF frame a step, K1 launched layers x chain steps.
 
 Each phase prints one JSON line and its seconds; then a ``{"kernels": [...]}``
 line (each kernel's time beside its bound, and the share of the bound it
@@ -2427,6 +2438,83 @@ def phase_parallel(work_dir: str, device="cuda", cfg=None, batch=1024, steps=3,
     return out
 
 
+def phase_dryrun(device="cuda", smi="") -> dict:
+    """The entry points of `graft_entry` at flagship width,
+    float32: `entry`'s forward (logits (2, 125, 155), K1 launched once a
+    layer), then `dryrun_multichip(1)`, one spawned rank on NCCL (on gloo
+    when rehearsed on the CPU): its data-parallel loss equal to
+    `train_step`'s, the gathered chain token-identical to one process's,
+    the gathered features within 1e-4 of one process's, and the rank's K1
+    / K2 launches: layers a train step (data parallel, `train_step`,
+    shard_map) and layers x T_eval a chain (its own rows, one process's)."""
+    from layoutdm_tpu_torch import graft_entry
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    fn, (seq, t) = graft_entry.entry(device)
+    layers = flagship_config("float32").backbone.num_layers
+    reset_launches()
+    logits = fn(seq, t)
+    entry_launches = check_path_launches("entry", "default", layers) if on_card else {}
+    if not (logits.shape == (2, 125, 155) and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"entry logits {tuple(logits.shape)}")
+    entry_s = time.perf_counter() - t0
+    del fn, logits
+    if on_card:
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(1, device)
+    dryrun_s = time.perf_counter() - t0
+    losses, tol = out["losses"], graft_entry.LOSS_TOL
+    if not (out["backend"] == ("nccl" if on_card else "gloo") and out["world_size"] == 1
+            and abs(losses["data_parallel"] - losses["train_step"])
+            <= tol["atol"] + tol["rtol"] * abs(losses["train_step"])
+            and out["chain_equal_one_process"] and out["chain_ranks"] == [0]
+            and out["feature_ranks"] == [0]
+            and out["feature_max_abs_err"] <= graft_entry.FEATURE_TOL):
+        raise AssertionError(f"dryrun_multichip(1): {out}")
+    per = {"data_parallel": (1, 1), "train_step": (1, 1), "shard_map": (1, 1),
+           "chain": (out["t_eval"], 0), "chain_one_process": (out["t_eval"], 0),
+           "features": (0, 0)}
+    counted = layers if on_card else 0  # the wrappers count launches on the card only
+    want = {name: {"K1": counted * f, "K2": counted * b} for name, (f, b) in per.items()}
+    if out["launches_by_step"] != want:
+        raise AssertionError(f"dryrun launches {out['launches_by_step']} != {want}")
+    res = {"phase": "dryrun", "entry_launches": entry_launches, "entry_seconds": entry_s,
+           "dryrun_seconds": dryrun_s, **{k: v for k, v in out.items() if k != "summary"},
+           "nvidia_smi": smi}
+    emit(res)
+    return res
+
+
+def phase_demo(work_dir: str, device="cuda", untrained_overrides=()) -> dict:
+    """The product-API demo (`layoutdm_tpu_torch.demo`, as ``python -m``
+    runs it) on the train_cli job and with random weights: the seven files
+    of each, non-empty, a GIF frame a step, and K1 launched layers x steps
+    over its six chains (unconditional, the four tasks, the GIF's)."""
+    from layoutdm_tpu_torch import demo
+
+    res = {"phase": "demo"}
+    for mode, args in (("job", ["--job_dir", f"{work_dir}/job"]),
+                       ("untrained", ["--untrained", *untrained_overrides])):
+        out_dir = f"{work_dir}/demo_{mode}"
+        reset_launches()
+        t0 = time.perf_counter()
+        out = demo.main([*args, "--out_dir", out_dir, "--device", device])
+        sec = time.perf_counter() - t0
+        files = {name: os.path.getsize(os.path.join(out_dir, name)) for name in demo.FILES}
+        if not (all(files.values()) and out["gif_frames"] == out["num_timesteps"]):
+            raise AssertionError(f"demo {mode}: files {files}, {out['gif_frames']} GIF frames")
+        steps = 6 * out["num_timesteps"]
+        launches = (check_path_launches(f"demo {mode}", "default", out["num_layers"] * steps)
+                    if torch.device(device).type == "cuda" else {})
+        res[mode] = {"seconds": sec, "files": files, "gif_frames": out["gif_frames"],
+                     "chain_steps": steps, "launches": launches}
+    emit(res)
+    return res
+
+
 K1_SYMBOL = r"attention_fwd::attention_(bf16|f32)_kernel<\s*\d+\s*,\s*false\s*>"
 
 
@@ -2613,9 +2701,11 @@ def main() -> int:
     serves = {}
     with tempfile.TemporaryDirectory() as work:
         run(phase_parallel, work_dir=work, smi=smi)
+        run(phase_dryrun, smi=smi)
         run(phase_zoo, work_dir=work, smi=smi)
         run(phase_fidnet_train, work_dir=work)
         run(phase_train_cli, work_dir=work)
+        run(phase_demo, work_dir=work)
         for path in ("default", "fused", "v2", "smajor"):
             guided = path in ("v2", "smajor")
             serves[path] = run(phase_serve, smi=smi, path=path, relation=guided,

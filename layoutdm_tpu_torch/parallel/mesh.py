@@ -18,7 +18,7 @@ data group, and the gradient all-reduce runs over it.
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +119,36 @@ def shard_batch(batch: Any, mesh: DeviceMesh) -> Any:
         return {k: shard_batch(v, mesh) for k, v in batch.items()}
     lo, hi = shard_rows(batch.shape[0], mesh)
     return batch[lo:hi]
+
+
+@torch.no_grad()
+def gather_rows(t: torch.Tensor, mesh: DeviceMesh) -> Tuple[torch.Tensor, List[int]]:
+    """Every rank's rows of ``t`` (this rank's rows `shard_rows` of the
+    batch) gathered over the batch group, in batch order: the rows of batch
+    index r land at ``[r·b, (r+1)·b)`` for ``b`` rows a rank (the JAX
+    data-sharded ``out_shardings``, gathered).  Also returns the global
+    ranks that contributed rows, in that order.  On NCCL ``t`` lies on the
+    rank's GPU (``all_gather_into_tensor``); on gloo, on the CPU."""
+    group = batch_group(mesh)
+    n = dist.get_world_size(group)
+    t = t.contiguous()
+    who = torch.tensor([batch_index(mesh), dist.get_rank()], device=t.device)
+
+    def gather(x):
+        if dist.get_backend(group) == "nccl":
+            out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(out, x, group=group)
+            return list(out.chunk(n))
+        out = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(out, x, group=group)
+        return out
+
+    parts, whos = gather(t), torch.stack(gather(who))
+    index, ranks = whos[:, 0].tolist(), whos[:, 1].tolist()
+    if sorted(index) != list(range(n)):
+        raise AssertionError(f"batch indices {index} of the batch group are not 0..{n - 1}")
+    order = sorted(range(n), key=index.__getitem__)
+    return torch.cat([parts[i] for i in order]), [ranks[i] for i in order]
 
 
 @torch.no_grad()

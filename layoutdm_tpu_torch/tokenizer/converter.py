@@ -78,18 +78,21 @@ class Converter:
         device = torch.device(device)
         t = self._dev.get(device)
         if t is None:
-            t = {
-                "p2f": torch.as_tensor(self.p2f, device=device),
-                "f2p": torch.as_tensor(np.maximum(self.f2p, 0), device=device),
-                "present": torch.as_tensor(self.f2p >= 0, device=device),
-                "lane_valid": torch.as_tensor(self.lane_valid, device=device),
-                "f2p_flat": torch.as_tensor(
-                    np.maximum(self.f2p, 0).reshape(-1), device=device
-                ),
-                "p2f_flat": torch.as_tensor(
-                    self.p2f.reshape(-1), device=device
-                ),
-            }
+            # normal tensors even when a chain under inference mode builds
+            # them first, so that a later train step may save them
+            with torch.inference_mode(False):
+                t = {
+                    "p2f": torch.as_tensor(self.p2f, device=device),
+                    "f2p": torch.as_tensor(np.maximum(self.f2p, 0), device=device),
+                    "present": torch.as_tensor(self.f2p >= 0, device=device),
+                    "lane_valid": torch.as_tensor(self.lane_valid, device=device),
+                    "f2p_flat": torch.as_tensor(
+                        np.maximum(self.f2p, 0).reshape(-1), device=device
+                    ),
+                    "p2f_flat": torch.as_tensor(
+                        self.p2f.reshape(-1), device=device
+                    ),
+                }
             self._dev[device] = t
         return t
 
