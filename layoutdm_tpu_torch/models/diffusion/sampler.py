@@ -32,6 +32,7 @@ from layoutdm_tpu_torch.ops.samplers import (
     row_gumbel,
     sample_tokens,
 )
+from layoutdm_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -118,7 +119,8 @@ def make_predict_start(apply_fn: Callable, num_classes: int):
 
     def predict_start(ids: torch.Tensor, t: torch.Tensor, dropout=None) -> torch.Tensor:
         # (B, S, V) float32
-        logits = apply_fn(ids, t) if dropout is None else apply_fn(ids, t, dropout)
+        with span("layoutdm.denoise"):
+            logits = apply_fn(ids, t) if dropout is None else apply_fn(ids, t, dropout)
         log_pred = torch.log_softmax(logits[..., :-1], dim=-1)
         mask_lane = torch.full_like(log_pred[..., :1], -70.0)
         return torch.clamp(torch.cat([log_pred, mask_lane], dim=-1), -70.0, 0.0)
@@ -165,31 +167,32 @@ def sample_chain(
 
     steps = []
     for i, (mt, pt) in enumerate(zip(model_t.tolist(), post_t.tolist())):
-        log_x_recon = predict_start(
-            ids, torch.full((B,), mt, dtype=torch.int64, device=dev)
-        )
-        mlp = q.q_posterior_ids(
-            log_x_recon, ids, torch.full((B,), pt, dtype=torch.int64, device=dev)
-        )
-        mlp = torch.where(strong, strong_log, mlp)  # `base.py:246-251`
-        mlp = mlp + weak  # `base.py:254-258`
-        if guidance_fn is not None:
-            mlp = guidance_fn(mlp, mt, cond)  # `base.py:261-269`
-        mlp = torch.where(pad_off, LOG_EPS, mlp)  # `base.py:272-284`
-
-        noise = None
-        if n_draw and per_row:
-            noise = torch.stack(
-                [row_gumbel(rng, i * n_draw + d, mlp.shape) for d in range(n_draw)]
+        with span("layoutdm.step"):
+            log_x_recon = predict_start(
+                ids, torch.full((B,), mt, dtype=torch.int64, device=dev)
             )
-        elif n_draw:
-            noise = gumbel_noise(rng, (n_draw,) + tuple(mlp.shape), device=dev)
-        ids = sample_tokens(
-            mlp, sampling.name, temperature=sampling.temperature,
-            top_k=sampling.top_k, top_p=sampling.top_p, noise=noise,
-        )
-        if get_intermediates:
-            steps.append(ids)
+            mlp = q.q_posterior_ids(
+                log_x_recon, ids, torch.full((B,), pt, dtype=torch.int64, device=dev)
+            )
+            mlp = torch.where(strong, strong_log, mlp)  # `base.py:246-251`
+            mlp = mlp + weak  # `base.py:254-258`
+            if guidance_fn is not None:
+                mlp = guidance_fn(mlp, mt, cond)  # `base.py:261-269`
+            mlp = torch.where(pad_off, LOG_EPS, mlp)  # `base.py:272-284`
+
+            noise = None
+            if n_draw and per_row:
+                noise = torch.stack(
+                    [row_gumbel(rng, i * n_draw + d, mlp.shape) for d in range(n_draw)]
+                )
+            elif n_draw:
+                noise = gumbel_noise(rng, (n_draw,) + tuple(mlp.shape), device=dev)
+            ids = sample_tokens(
+                mlp, sampling.name, temperature=sampling.temperature,
+                top_k=sampling.top_k, top_p=sampling.top_p, noise=noise,
+            )
+            if get_intermediates:
+                steps.append(ids)
     if get_intermediates:
         return ids, torch.stack(steps)
     return ids

@@ -81,6 +81,7 @@ from layoutdm_tpu_torch.ops.ffn import (
     fused_ln_ffn_residual,
 )
 from layoutdm_tpu_torch.ops.samplers import RowShard, draw_rows
+from layoutdm_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 EMB_DROPOUT = 0.1  # fixed embedding dropout (JAX `models/nn.py`, `nn.Dropout(0.1)`)
@@ -344,7 +345,8 @@ class SelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm encoder block (`transformer_utils.py:103-210`)."""
+    """Pre-norm encoder block (`transformer_utils.py:103-210`); its attention
+    sublayer and its FFN each run in a span (`utils.profiling.span`)."""
 
     def __init__(self, cfg: BackboneConfig, dtype=torch.float32,
                  fused_block: bool = False, fused_ffn: bool = False,
@@ -387,26 +389,28 @@ class Block(nn.Module):
         # the fused kernels have no backward and no dropout: inference only
         inference = dropout is None and not torch.is_grad_enabled()
         masked = mask is not None or key_padding_mask is not None
-        if cache is not None:
-            x = x + self.attn.decode_step(x, cache, layer)
-        elif self.fused_block and inference and not masked:
-            x = self.attn(x, fold_residual=True)
-        else:
-            x = x + drop(self.attn(x, dropout, mask=mask, key_padding_mask=key_padding_mask),
-                         self.dropout)
-        # the FFN does not see the mask: K3 keeps a masked inference call
-        if self.fused_ffn and inference:
-            return fused_ln_ffn_residual(
-                x, self.norm2.weight, self.norm2.bias, self.linear1.weight,
-                self.linear1.bias, self.linear2.weight, self.linear2.bias,
-                self.activation_name, LN_EPS,
-            )
-        h = self.norm2(x.float())
-        h = self.activation(_linear(h, self.linear1, self.dtype))
-        # the hidden's own columns where `parallel.tp` splits the FFN
-        h = _linear(drop(h, self.dropout, getattr(self.linear1, "tensor_parallel", None)),
-                    self.linear2, self.dtype)
-        return x + drop(h, self.dropout)
+        with span("layoutdm.attention"):
+            if cache is not None:
+                x = x + self.attn.decode_step(x, cache, layer)
+            elif self.fused_block and inference and not masked:
+                x = self.attn(x, fold_residual=True)
+            else:
+                x = x + drop(self.attn(x, dropout, mask=mask, key_padding_mask=key_padding_mask),
+                             self.dropout)
+        with span("layoutdm.ffn"):
+            # the FFN does not see the mask: K3 keeps a masked inference call
+            if self.fused_ffn and inference:
+                return fused_ln_ffn_residual(
+                    x, self.norm2.weight, self.norm2.bias, self.linear1.weight,
+                    self.linear1.bias, self.linear2.weight, self.linear2.bias,
+                    self.activation_name, LN_EPS,
+                )
+            h = self.norm2(x.float())
+            h = self.activation(_linear(h, self.linear1, self.dtype))
+            # the hidden's own columns where `parallel.tp` splits the FFN
+            h = _linear(drop(h, self.dropout, getattr(self.linear1, "tensor_parallel", None)),
+                        self.linear2, self.dtype)
+            return x + drop(h, self.dropout)
 
 
 class TransformerEncoder(nn.Module):

@@ -14,6 +14,9 @@ token embedding too).  The weight-decay mask becomes two parameter
 groups.  Gradients are clipped as optax's ``clip_by_global_norm`` does:
 scaled by ``max_norm / norm`` only when ``norm > max_norm`` (torch's
 ``clip_grad_norm_`` adds 1e-6 to the norm).
+Every step runs in the span ``layoutdm.train_step``, which holds
+``layoutdm.forward``, ``layoutdm.backward`` and ``layoutdm.optimizer`` in
+turn (`utils.profiling.span`).
 
 Over a mesh (`parallel.mesh`, one process a device) the steps spell out the
 collectives that GSPMD and ``shard_map`` insert in the JAX package:
@@ -58,6 +61,7 @@ from layoutdm_tpu_torch.parallel.mesh import (
     shard_batch,
     shard_rows,
 )
+from layoutdm_tpu_torch.utils.profiling import span
 
 # modules whose parameters never decay (JAX `NO_DECAY_MODULES`): the norms,
 # including the Dense inside each AdaLayerNorm (`norm1.cond.linear`)
@@ -222,19 +226,21 @@ def _update(model, optimizer, state: "TrainState", losses: Dict[str, torch.Tenso
             coll: Optional[_Collectives] = None) -> Dict[str, torch.Tensor]:
     """Backward of the summed losses, the gradients (and over a mesh the
     losses and the aux state) combined, the clip, one AdamW update."""
-    total = sum(losses.values())
-    optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    params = list(model.net.parameters())
-    metrics = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
-    if coll is None:
-        clip_by_global_norm(params, state.grad_norm_clip)
-    else:
-        coll.average_grads(params)
-        clip_by_global_norm(params, state.grad_norm_clip, coll.split, coll.model_group)
-        new_lt = coll.merge(state.lt_state, new_lt, coll.group, coll.n)
-        metrics = {k: _mean(v, coll.group, coll.n) for k, v in metrics.items()}
-    optimizer.step()
+    with span("layoutdm.backward"):
+        total = sum(losses.values())
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+    with span("layoutdm.optimizer"):
+        params = list(model.net.parameters())
+        metrics = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        if coll is None:
+            clip_by_global_norm(params, state.grad_norm_clip)
+        else:
+            coll.average_grads(params)
+            clip_by_global_norm(params, state.grad_norm_clip, coll.split, coll.model_group)
+            new_lt = coll.merge(state.lt_state, new_lt, coll.group, coll.n)
+            metrics = {k: _mean(v, coll.group, coll.n) for k, v in metrics.items()}
+        optimizer.step()
     state.lt_state = new_lt
     state.step += 1
     return metrics
@@ -251,11 +257,13 @@ def train_step(
     ``loss_fn(lt_state) -> (losses, new_lt_state)`` replaces the model's
     sampled training loss (tests pin t, x_t and dropout through it)."""
     model = state.model
-    if loss_fn is None:
-        losses, new_lt = model.loss(tokens, state.lt_state, generator, is_train=True)
-    else:
-        losses, new_lt = loss_fn(state.lt_state)
-    return _update(model, state.optimizer, state, losses, new_lt)
+    with span("layoutdm.train_step"):
+        with span("layoutdm.forward"):
+            if loss_fn is None:
+                losses, new_lt = model.loss(tokens, state.lt_state, generator, is_train=True)
+            else:
+                losses, new_lt = loss_fn(state.lt_state)
+        return _update(model, state.optimizer, state, losses, new_lt)
 
 
 def make_train_step(model, optimizer, mesh=None, tp_specs=None):
@@ -284,12 +292,14 @@ def make_train_step(model, optimizer, mesh=None, tp_specs=None):
                           Draws(generator, rows=rows), is_train=True)
 
     def step(state, tokens, generator=None, loss_fn=None):
-        if coll is None:
-            losses, new_lt = losses_of(state, tokens, generator, loss_fn)
-        else:
-            with full_batch_means(coll.group, coll.n):
-                losses, new_lt = losses_of(state, tokens, generator, loss_fn)
-        return _update(model, optimizer, state, losses, new_lt, coll)
+        with span("layoutdm.train_step"):
+            with span("layoutdm.forward"):
+                if coll is None:
+                    losses, new_lt = losses_of(state, tokens, generator, loss_fn)
+                else:
+                    with full_batch_means(coll.group, coll.n):
+                        losses, new_lt = losses_of(state, tokens, generator, loss_fn)
+            return _update(model, optimizer, state, losses, new_lt, coll)
 
     return step
 
@@ -304,14 +314,16 @@ def make_train_step_shardmap(model, optimizer, mesh):
     coll = _Collectives(batch_group(mesh), batch_shards(mesh), merge_shardmap)
 
     def step(state, tokens, seed: int, loss_fn=None):
-        if loss_fn is None:
-            gen = torch.Generator(device=model.device).manual_seed(
-                fold_in(seed, batch_index(mesh)))
-            losses, new_lt = model.loss(shard_batch(tokens, mesh), state.lt_state, gen,
-                                        is_train=True)
-        else:
-            losses, new_lt = loss_fn(state.lt_state)
-        return _update(model, optimizer, state, losses, new_lt, coll)
+        with span("layoutdm.train_step"):
+            with span("layoutdm.forward"):
+                if loss_fn is None:
+                    gen = torch.Generator(device=model.device).manual_seed(
+                        fold_in(seed, batch_index(mesh)))
+                    losses, new_lt = model.loss(shard_batch(tokens, mesh), state.lt_state, gen,
+                                                is_train=True)
+                else:
+                    losses, new_lt = loss_fn(state.lt_state)
+            return _update(model, optimizer, state, losses, new_lt, coll)
 
     return step
 

@@ -1,28 +1,56 @@
-"""Profiling hooks (port of ``layoutdm_tpu/utils/profiling.py``): the
-reference's wall-clock throughput counters (`test.py:270-271`) and an
-optional ``torch.profiler`` trace around a region, written as a Chrome
-trace that Perfetto and TensorBoard read.
+"""Profiling hooks: an optional ``torch.profiler`` trace around a region,
+written as a Chrome trace that Perfetto and TensorBoard read, and the
+named spans of the program's phases that such a trace carries.
+
+The spans (`span`) are ``torch.profiler`` user annotations, so they land in
+the same trace as the kernels, on the profiler's clock, whoever started
+the profiler.  Where no profiler records they cost an attribute test:
+nothing is entered, nothing is kept.
+
+| Span | Where | Once per |
+| --- | --- | --- |
+| ``layoutdm.step`` | `models.diffusion.sampler.sample_chain`: one reverse step, denoiser call to drawn ids | reverse step |
+| ``layoutdm.denoise`` | `make_predict_start`: the denoiser call alone | denoiser call |
+| ``layoutdm.attention`` | `models.nn.Block`: the attention sublayer and its residual | layer |
+| ``layoutdm.ffn`` | `models.nn.Block`: ``norm2`` through the FFN's residual | layer |
+| ``layoutdm.train_step`` | `train.step`: a whole train step | train step |
+| ``layoutdm.forward`` | `train.step`: the losses (timesteps, corruption, denoiser, loss) | train step |
+| ``layoutdm.backward`` | `train.step._update`: the summed loss, ``zero_grad``, ``backward`` | train step |
+| ``layoutdm.optimizer`` | `train.step._update`: averaging over a mesh, the clip, the update, the aux state | train step |
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Iterator, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming a phase of the program in a profiler's trace:
+    ``torch.profiler.record_function(name)`` while a profiler records,
+    else a shared no-op context.  It holds no tensor and waits for
+    nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def maybe_trace(trace_dir: Optional[str]) -> Iterator[None]:
-    """Trace the region's CPU and CUDA activity into
-    ``<trace_dir>/trace_<pid>.json`` when a directory is given; with none,
-    do nothing.  The profiler leaves grad mode as the caller set it (a
-    guided chain runs under ``torch.no_grad``, the others under
-    ``torch.inference_mode``)."""
+    """Trace the region's CPU and CUDA activity, the program's spans
+    included, into ``<trace_dir>/trace_<pid>.json`` when a directory is
+    given; with none, do nothing.  The profiler leaves grad mode as the
+    caller set it (a guided chain runs under ``torch.no_grad``, the others
+    under ``torch.inference_mode``)."""
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -32,26 +60,3 @@ def maybe_trace(trace_dir: Optional[str]) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}.json"))
-
-
-class Throughput:
-    """Accumulates (items, seconds) and reports items/sec + ms/item."""
-
-    def __init__(self):
-        self.items = 0
-        self.seconds = 0.0
-
-    @contextlib.contextmanager
-    def measure(self, n: int):
-        t0 = time.perf_counter()
-        yield
-        self.seconds += time.perf_counter() - t0
-        self.items += n
-
-    @property
-    def items_per_sec(self) -> float:
-        return self.items / self.seconds if self.seconds else 0.0
-
-    @property
-    def ms_per_item(self) -> float:
-        return 1e3 * self.seconds / self.items if self.items else 0.0
