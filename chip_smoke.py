@@ -13,7 +13,7 @@ FFN 1856, 4 layers; random weights from a seed), then the evaluation path
 on what it sampled (FIDNetV3 at its full width, d_model 256, trained here:
 no extractor weights are in the repo), and checks them:
 
-1. device       card name, power limit, nvcc version, the six kernels
+1. device       card name, power limit, nvcc version, the seven kernels
                 built in parallel, their build times and ptxas reports;
 2. kernel       the CUDA attention kernel (K1) against its plain PyTorch
                 version at the serving shapes, on sharp scores, at the tile
@@ -39,6 +39,12 @@ no extractor weights are in the repo), and checks them:
                 plain version at d_model 464, 256 and 174, on sharp scores
                 and at the tile edges, times beside the bias add +
                 transpose + SDPA;
+3e. adaln_kernel the adaLN norm1 kernel against its plain version, float32
+                and bfloat16, at the sampling cells' shapes, ragged rows
+                and d_model 64 .. 1024 (bf16 bit-equal but where the
+                normalised value rounds to its neighbour), times beside the
+                plain path; the inference phases below count its launches
+                (layers x forwards of every adaLN denoiser);
 4. denoiser     flagship-width logits and posteriors with the kernel against
                 the same weights with the plain attention, float32;
 4a. fused_denoiser, v2_denoiser, smajor_denoiser: the same on each path
@@ -198,6 +204,12 @@ FUSED_BF16_REL_TOL = 2 ** -7
 # values that differ in their last bits, and the bf16 output (2**-8)
 BWD_F32_TOL = 1e-5
 BWD_BF16_TOL = 1e-2
+# the adaLN kernel against its plain version (tests/test_torch_cuda.py):
+# bf16 outputs bit-equal but where the statistics' summation order rounds
+# the normalised value to its neighbour; float32 within ADALN_F32_TOL of
+# the largest output
+ADALN_EQUAL_SHARE = 0.999
+ADALN_F32_TOL = 1e-5
 # float32 parameter gradients of one train step, kernels against plain
 # versions, relative to the largest gradient: attention differs by
 # summation order (~1e-6), carried through 4 layers of backward GEMMs and
@@ -216,6 +228,9 @@ KERNELS = {
                             "layoutdm_tpu/ops/attention_blockdiag.py:128"),
     "attention_qkv_smajor": ("layoutdm_tpu_torch/csrc/attention_smajor.cu",
                              "layoutdm_tpu/ops/attention.py:333"),
+    # no pallas_call: XLA fused the JAX AdaLayerNorm's ops on the TPU
+    "ada_layer_norm": ("layoutdm_tpu_torch/csrc/adaln.cu",
+                       "none (layoutdm_tpu/models/nn.py:124 AdaLayerNorm, fused by XLA)"),
 }
 # inputs that sharpen the softmax: q and k scaled by this (scores by its
 # square), so one key takes most of a row's weight
@@ -301,7 +316,7 @@ def flagship_config(dtype: str):
 
 def phase_device() -> dict:
     from layoutdm_tpu_torch import native
-    from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
+    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
     from layoutdm_tpu_torch.ops.cuda_build import find_nvcc
 
     smi = subprocess.run(
@@ -317,7 +332,8 @@ def phase_device() -> dict:
             "ln_ffn_residual": ffn.kernel_library,
             "attention_block": attention.block_kernel_library,
             "attention_blockdiag": attention_blockdiag.kernel_library,
-            "attention_qkv_smajor": attention.smajor_kernel_library}
+            "attention_qkv_smajor": attention.smajor_kernel_library,
+            "ada_layer_norm": adaln.kernel_library}
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         futures = {name: pool.submit(build) for name, build in libs.items()}
         engine = pool.submit(native.library)  # g++: the metrics' host engine
@@ -709,6 +725,85 @@ def phase_smajor_kernel(device="cuda") -> dict:
     return out
 
 
+def check_adaln(what: str, got: torch.Tensor, x: torch.Tensor, cond: torch.Tensor) -> dict:
+    """The adaLN kernel's output against its plain version: float32 within
+    ADALN_F32_TOL; bfloat16 the plain modulation of the plain normalised
+    value or of one of its bf16 neighbours (the statistics summed in
+    another order can round it the other way), and bit-equal on at least
+    ADALN_EQUAL_SHARE of the outputs.  Returns the max abs error and the
+    share bit-equal."""
+    import torch.nn.functional as F
+
+    from layoutdm_tpu_torch.ops.adaln import ada_layer_norm_reference
+
+    want = ada_layer_norm_reference(x, cond)
+    err = (got.float() - want.float()).abs().max().item()
+    equal = (got == want).float().mean().item()
+    ok = got.shape == want.shape and got.dtype == want.dtype and bool(np.isfinite(err))
+    if x.dtype == torch.float32:
+        ok = ok and err <= ADALN_F32_TOL * max(1.0, want.abs().max().item())
+    else:
+        y = F.layer_norm(x.float(), x.shape[-1:], eps=1e-6).to(x.dtype)
+        scale, shift = cond[:, None].chunk(2, dim=-1)
+        hit = got == want
+        for step in (-1, 1):
+            bits = y.view(torch.int16).to(torch.int32)
+            o = torch.where(bits < 0, -(bits & 0x7FFF), bits) + step
+            bits = torch.where(o < 0, (-o) | 0x8000, o)
+            yk = torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16)
+            hit |= got == (yk.view(torch.bfloat16) * (1 + scale) + shift).to(x.dtype)
+        ok = ok and bool(hit.all()) and equal >= ADALN_EQUAL_SHARE
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {err}, bit-equal share {equal}")
+    return {"max_abs_err": err, "equal_share": equal}
+
+
+def phase_adaln_kernel(device="cuda") -> dict:
+    """The adaLN norm1 kernel against its plain version (float32 and
+    bfloat16, ragged rows, d_model 64 to 1024), and its time at the
+    sampling cells' shapes beside its bound and the plain path (no library
+    call computes the function)."""
+    from layoutdm_tpu_torch.ops import adaln
+
+    g = torch.Generator().manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    D = FLAG_H * FLAG_HD
+
+    def inputs(B, S, d, dtype):
+        x = _randn(g, (B, S, d), 2.0, 0.3).to(device, dtype)
+        return x, _randn(g, (B, 2 * d), 0.5).to(device)
+
+    cases = [(name, B, S, D, bf16) for name, B, S in TIMED_SHAPES]
+    cases += [("b8_s125_f32", 8, 125, D, f32), ("ragged_b3_s7_bf16", 3, 7, D, bf16),
+              ("ragged_b3_s7_f32", 3, 7, D, f32), ("d64_bf16", 4, 33, 64, bf16),
+              ("d1024_bf16", 4, 33, 1024, bf16), ("d1024_f32", 4, 33, 1024, f32)]
+    errs, shares = {}, {}
+    for name, B, S, d, dtype in cases:
+        x, cond = inputs(B, S, d, dtype)
+        got = adaln.ada_layer_norm(x, cond)
+        torch.cuda.synchronize()
+        r = check_adaln(f"adaLN case {name}", got, x, cond)
+        errs[name], shares[name] = r["max_abs_err"], r["equal_share"]
+        del x, cond, got
+
+    times = {}
+    for name, B, S in TIMED_SHAPES:
+        x, cond = inputs(B, S, D, bf16)
+        times[name] = {
+            "kernel_ms": cuda_ms(lambda: adaln.ada_layer_norm(x, cond)),
+            "plain_ms": cuda_ms(lambda: adaln.ada_layer_norm_reference(x, cond)),
+            "library_ms": None,  # no PyTorch call computes the function
+            # read x and cond once, write out
+            **bound(2 * B * S * D * 2 + B * 2 * D * 4, 0),
+        }
+        del x, cond
+        torch.cuda.empty_cache()
+    out = {"phase": "adaln_kernel", "max_abs_err": errs, "equal_share": shares,
+           "times": times}
+    emit(out)
+    return out
+
+
 def phase_denoiser(device="cuda", batch=8, cfg=None) -> dict:
     """Same weights, kernel attention vs plain attention, float32."""
     from layoutdm_tpu_torch.factory import build_model, build_tokenizer
@@ -767,25 +862,42 @@ def path_switches(path: str) -> dict:
 
 def launch_counts() -> dict:
     """The kernel wrappers' launch counters."""
-    from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
+    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
 
     return {"K1": attention.LAUNCHES, "K2": attention.LAUNCHES_BWD,
             "K3": ffn.LAUNCHES_FFN, "K4": attention.LAUNCHES_BLOCK,
-            "K5": attention_blockdiag.LAUNCHES_BLOCKDIAG, "K6": attention.LAUNCHES_SMAJOR}
+            "K5": attention_blockdiag.LAUNCHES_BLOCKDIAG, "K6": attention.LAUNCHES_SMAJOR,
+            "adaLN": adaln.LAUNCHES_ADALN}
 
 
 def reset_launches() -> None:
-    from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
+    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
 
     attention.LAUNCHES = attention.LAUNCHES_BWD = attention.LAUNCHES_BLOCK = 0
     attention.LAUNCHES_SMAJOR = ffn.LAUNCHES_FFN = attention_blockdiag.LAUNCHES_BLOCKDIAG = 0
+    adaln.LAUNCHES_ADALN = 0
 
 
-def check_path_launches(what: str, path: str, per_kernel: int) -> dict:
+def adaln_blocks(model) -> int:
+    """Blocks of ``model``'s denoiser whose norm1 launches the adaLN kernel
+    once a forward without autograd: an `AdaLayerNorm` at a width and
+    dtype the kernel takes."""
+    from layoutdm_tpu_torch.models.nn import AdaLayerNorm, Block
+    from layoutdm_tpu_torch.ops.adaln import can_use_fused_adaln
+
+    return sum(isinstance(m, Block) and isinstance(m.norm1, AdaLayerNorm)
+               and can_use_fused_adaln(m.linear1.in_features, m.dtype)
+               for m in model.net.modules())
+
+
+def check_path_launches(what: str, path: str, per_kernel: int, adaln=None) -> dict:
     """Inference launches since the last reset: ``per_kernel`` for each
-    kernel of ``path``, none of the other forward kernels."""
+    kernel of ``path``, ``adaln`` adaLN launches (by default
+    ``per_kernel``: a LayoutDM denoiser, whose every layer's norm1 takes
+    the kernel), none of the other forward kernels."""
     got = {k: v for k, v in launch_counts().items() if k != "K2"}
     want = {k: per_kernel if k in PATH_KERNELS[path] else 0 for k in got}
+    want["adaLN"] = per_kernel if adaln is None else adaln
     if got != want or per_kernel == 0:
         raise AssertionError(f"{what}: launches {got} != {want}")
     return got
@@ -1351,9 +1463,10 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
         sec = time.perf_counter() - t0
         if family in CHAIN_FAMILIES:
             T = model.q.num_timesteps if hasattr(model, "q") else model.num_timesteps
-            sample_launches = check_path_launches(f"{family} chain", "default", layers * T)
+            sample_launches = check_path_launches(f"{family} chain", "default", layers * T,
+                                                  adaln=adaln_blocks(model) * T)
         elif family == "bart":  # the encoder once; the decoder is masked
-            sample_launches = check_path_launches("bart encoder", "default", layers)
+            sample_launches = check_path_launches("bart encoder", "default", layers, adaln=0)
         else:
             sample_launches = _no_launches(f"{family} sampling")
         if family in CONTINUOUS:
@@ -1495,7 +1608,8 @@ def zoo_paths(device="cuda", cfgs=None, batch=8) -> dict:
                     if launches != want_l:
                         raise AssertionError(f"bart {path}: launches {launches} != {want_l}")
                 else:
-                    launches = check_path_launches(f"{family} {path}", path, layers)
+                    launches = check_path_launches(f"{family} {path}", path, layers,
+                                                   adaln=adaln_blocks(model))
                 err = max((g - w).abs().max().item() for g, w in zip(got, want))
                 if not (err <= DENOISER_TOL and all(torch.isfinite(g).all() for g in got)):
                     raise AssertionError(f"{family} {path}: max abs err {err} against default")
@@ -2277,7 +2391,8 @@ def phase_int8(device="cuda", batch=1024, cfg=None, check_batch=64, latency_step
     _, default_s = chain(default_ps, batch)
     reset_launches()
     out, int8_s = chain(int8_ps, batch)
-    launches = check_path_launches("int8 chain", "default", bb.num_layers * T)
+    # the int8 mirror runs its own norm1, not `AdaLayerNorm`
+    launches = check_path_launches("int8 chain", "default", bb.num_layers * T, adaln=0)
     elements = check_decoded("int8 chain", out, batch, cfg)
     ms_per_step = {}
     for b_ in (1, 64):
@@ -2693,6 +2808,7 @@ def main() -> int:
         "attention_block": run(phase_block_kernel),
         "attention_blockdiag": run(phase_blockdiag_kernel),
         "attention_qkv_smajor": run(phase_smajor_kernel),
+        "ada_layer_norm": run(phase_adaln_kernel),
     }
     run(phase_denoiser)
     for path in ("fused", "v2", "smajor"):
@@ -2727,6 +2843,7 @@ def main() -> int:
         "attention_block": serves["fused"]["launches"]["K4"],
         "attention_blockdiag": serves["v2"]["launches"]["K5"],
         "attention_qkv_smajor": serves["smajor"]["launches"]["K6"],
+        "ada_layer_norm": serves["default"]["launches"]["adaLN"],
     }
     rows = []
     for name, phase in kernel_phases.items():

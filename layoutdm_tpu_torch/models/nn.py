@@ -4,10 +4,13 @@ denoiser of ``layoutdm_tpu/models/nn.py``; reference
 
 Numerics follow the flax modules: parameters are float32; activations run
 in the model's compute ``dtype``; norm statistics are float32 and the vocab
-head runs in float32.  ``Block`` keeps the reference's trunk-replacing
-norm1 quirk: x = norm1(x), then x + attn(x).  Attention runs at the native
-head width (58 at the flagship): the TPU package's head-padding to 64 lanes
-and lane-padded vocab head are TPU layout tricks with no counterpart here.
+head runs in float32.  ``AdaLayerNorm`` runs its CUDA kernel (`ops.adaln`:
+the norm, its modulation and the cast in one pass) on a CUDA tensor without
+autograd, on every denoiser path, at the same rounding points.  ``Block``
+keeps the reference's trunk-replacing norm1 quirk: x = norm1(x), then
+x + attn(x).  Attention runs at the native head width (58 at the
+flagship): the TPU package's head-padding to 64 lanes and lane-padded
+vocab head are TPU layout tricks with no counterpart here.
 
 Modules are built on the meta device and materialised by `make_module`
 (``to_empty`` + `init_weights`), so construction never draws from the
@@ -60,6 +63,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from layoutdm_tpu_torch.configs import BackboneConfig
+from layoutdm_tpu_torch.ops.adaln import (
+    ada_layer_norm,
+    ada_layer_norm_reference,
+    can_use_fused_adaln,
+)
 from layoutdm_tpu_torch.ops.attention import (
     can_use_fused_block,
     can_use_smajor,
@@ -164,7 +172,7 @@ class SinusoidalTimestepEmb(nn.Module):
 
 
 class AdaNormCond(nn.Module):
-    """Timestep -> (B, 1, 2D) scale/shift modulation
+    """Timestep -> (B, 2D) scale/shift modulation
     (`transformer_utils.py:52-69`)."""
 
     def __init__(self, d_model: int, max_timestep: int, emb_type: str):
@@ -184,19 +192,24 @@ class AdaNormCond(nn.Module):
             emb = self.mlp2(F.relu(self.mlp1(t.float()[:, None])))
         else:
             emb = self.emb(t)
-        return self.linear(F.silu(emb))[:, None, :]
+        return self.linear(F.silu(emb))
 
 
 class AdaLayerNorm(nn.Module):
+    """LayerNorm modulated by the timestep's scale and shift, in x's dtype
+    (`ops.adaln`): the kernel on a CUDA tensor without autograd (it has no
+    backward) at the widths it takes, the plain version otherwise."""
+
     def __init__(self, d_model: int, max_timestep: int, emb_type: str):
         super().__init__()
         self.cond = AdaNormCond(d_model, max_timestep, emb_type)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        scale, shift = self.cond(t).chunk(2, dim=-1)
-        # a parameter-free flax LayerNorm returns the input's dtype
-        y = F.layer_norm(x.float(), x.shape[-1:], eps=LN_EPS).to(x.dtype)
-        return y * (1 + scale) + shift
+        cond = self.cond(t)
+        if (x.is_cuda and not torch.is_grad_enabled()
+                and can_use_fused_adaln(x.shape[-1], x.dtype)):
+            return ada_layer_norm(x, cond, LN_EPS)
+        return ada_layer_norm_reference(x, cond, LN_EPS)
 
 
 class AdaInsNorm(nn.Module):
@@ -212,7 +225,7 @@ class AdaInsNorm(nn.Module):
         self.cond = AdaNormCond(d_model, max_timestep, emb_type)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        scale, shift = self.cond(t).chunk(2, dim=-1)
+        scale, shift = self.cond(t)[:, None].chunk(2, dim=-1)
         x = x.float()
         mean = x.mean(dim=1, keepdim=True)
         var = x.var(dim=1, keepdim=True, unbiased=False)

@@ -1,7 +1,7 @@
 """The port on a CUDA card: the hand-written kernels (K1 attention forward,
 K2 its backward, K3 LayerNorm-FFN-residual, K4 attention block, K5
-padded-head attention, K6 sequence-major attention) against their plain
-versions, the denoiser (every path), the per-row noise and the FIDNet
+padded-head attention, K6 sequence-major attention, the adaLN norm1)
+against their plain versions, the denoiser (every path), the per-row noise and the FIDNet
 feature extractor on the card against the CPU.  Every test here is marked ``cuda`` and skips without a card.
 
 This file imports no jax and nothing of the JAX package (as
@@ -379,6 +379,112 @@ def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
     big = _ffn_params(rs, 520, 32, cuda, torch.float32)
     with pytest.raises(ValueError):
         ffn.fused_ln_ffn_residual(torch.zeros(2, 520, device=cuda), **big, activation="relu")
+
+
+# adaLN norm1 against its plain version: the kernel sums the statistics in
+# another order than PyTorch's LayerNorm, so the normalised value may round
+# to the neighbouring bf16 value where the float32 values straddle a
+# rounding boundary (a few in 10**5 values); the modulation after it is
+# exact.  So every output is the plain version's modulation of the plain
+# normalised value or of one of its bf16 neighbours, and at least
+# ADALN_EQUAL_SHARE of the outputs are bit-equal.  Float32 io: the
+# statistics' summation order alone, ~1e-7 of the normalised value.
+ADALN_EQUAL_SHARE = 0.999
+ADALN_F32_TOL = 1e-5
+ADALN_CASES = [
+    (1024, 125, 464, torch.bfloat16),  # a Rico25 cell's step
+    (256, 500, 464, torch.bfloat16),   # a PubLayNet cell's step
+    (8, 125, 464, torch.float32),
+    (3, 7, 464, torch.bfloat16),       # 21 rows: a block of 8 rows cut short
+    (3, 7, 464, torch.float32),
+    (4, 33, 64, torch.bfloat16),
+    (4, 33, 1024, torch.bfloat16),     # the gate's widest
+    (4, 33, 1024, torch.float32),
+]
+
+
+def _adaln_inputs(B, S, D, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (2 * torch.randn((B, S, D), generator=g) + 0.3).to(device, dtype)
+    cond = (0.5 * torch.randn((B, 2 * D), generator=g)).to(device)
+    return x, cond
+
+
+def _bf16_step(y: torch.Tensor, k: int) -> torch.Tensor:
+    """The bf16 value ``k`` representable steps from each of ``y``."""
+    b = y.view(torch.int16).to(torch.int32)
+    o = torch.where(b < 0, -(b & 0x7FFF), b) + k  # ordered as the values
+    b = torch.where(o < 0, (-o) | 0x8000, o)
+    return torch.where(b >= 0x8000, b - 0x10000, b).to(torch.int16).view(torch.bfloat16)
+
+
+def _assert_adaln_close(got, x, cond):
+    from layoutdm_tpu_torch.ops.adaln import ada_layer_norm_reference
+
+    want = ada_layer_norm_reference(x, cond)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=ADALN_F32_TOL, atol=ADALN_F32_TOL)
+        return
+    y = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], eps=1e-6).to(x.dtype)
+    scale, shift = cond[:, None].chunk(2, dim=-1)
+    ok = got == want
+    equal = ok.float().mean().item()
+    for k in (-1, 1):
+        ok |= got == (_bf16_step(y, k) * (1 + scale) + shift).to(x.dtype)
+    assert ok.all(), f"{(~ok).sum().item()} outputs off the plain normalised value's neighbours"
+    assert equal >= ADALN_EQUAL_SHARE, equal
+
+
+@pytest.mark.parametrize("B,S,D,dtype", ADALN_CASES)
+def test_adaln_kernel_matches_plain_version(cuda, B, S, D, dtype):
+    from layoutdm_tpu_torch.ops import adaln
+
+    x, cond = _adaln_inputs(B, S, D, dtype, cuda)
+    before = adaln.LAUNCHES_ADALN
+    got = adaln.ada_layer_norm(x, cond)
+    torch.cuda.synchronize()
+    assert adaln.LAUNCHES_ADALN == before + 1
+    _assert_adaln_close(got, x, cond)
+
+
+def test_adaln_kernel_rejects_what_it_does_not_take(cuda):
+    from layoutdm_tpu_torch.ops.adaln import ada_layer_norm
+
+    x, cond = _adaln_inputs(2, 5, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):  # no whole bf16 vectors
+        ada_layer_norm(x[..., :60], cond[:, :120])
+    with pytest.raises(ValueError):  # wider than the gate
+        ada_layer_norm(torch.zeros(2, 5, 1032, device=cuda, dtype=torch.bfloat16),
+                       torch.zeros(2, 2064, device=cuda))
+    with pytest.raises(ValueError):
+        ada_layer_norm(x.transpose(0, 1).contiguous().transpose(0, 1), cond)
+    with pytest.raises(ValueError):
+        ada_layer_norm(x, cond.cpu())
+    with pytest.raises(TypeError):
+        ada_layer_norm(x, cond.to(torch.bfloat16))
+
+
+def test_adaln_kernel_runs_on_the_sampling_chain(cuda):
+    """A chain launches the kernel once a layer and step; a forward under
+    autograd takes the plain version."""
+    from layoutdm_tpu_torch.ops import adaln
+
+    cfg = build_train_config("layoutdm", "synthetic", [
+        "data.bbox_quantization=linear", "dataset.max_seq_length=5",
+        # d_model 232 after LayoutDM's 29/32 shrink: whole bf16 vectors
+        "backbone.d_model=256", "backbone.nhead=4",
+        "backbone.dim_feedforward=64", "backbone.num_layers=2",
+        "model.num_timesteps=10", "backbone.diffusion_step=10", "model.dtype=bfloat16",
+    ])
+    model = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    before = adaln.LAUNCHES_ADALN
+    ids = model.sample_ids(torch.Generator(cuda).manual_seed(1), 3)
+    torch.cuda.synchronize()
+    assert adaln.LAUNCHES_ADALN == before + 2 * 10
+    logits = model.net(ids.clone(), torch.full((3,), 4, device=cuda))
+    logits.float().sum().backward()
+    assert adaln.LAUNCHES_ADALN == before + 2 * 10
 
 
 def _block_params(rs, D, device, dtype, sharp=1.0):
