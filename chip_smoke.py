@@ -39,12 +39,16 @@ no extractor weights are in the repo), and checks them:
                 plain version at d_model 464, 256 and 174, on sharp scores
                 and at the tile edges, times beside the bias add +
                 transpose + SDPA;
-3e. adaln_kernel the adaLN norm1 kernel against its plain version, float32
-                and bfloat16, at the sampling cells' shapes, ragged rows
-                and d_model 64 .. 1024 (bf16 bit-equal but where the
-                normalised value rounds to its neighbour), times beside the
-                plain path; the inference phases below count its launches
-                (layers x forwards of every adaLN denoiser);
+3e. adaln_kernel the denoiser's LayerNorm kernel against its plain
+                versions: the adaLN norm1 mode, float32 and bfloat16 (bf16
+                bit-equal but where the normalised value rounds to its
+                neighbour), and the affine mode (norm2, the heads' norms),
+                float32, bfloat16 and bfloat16 to float32, at the sampling
+                cells' shapes, ragged rows and d_model 64 .. 1024; times
+                beside the plain paths; the inference phases below count
+                its launches (adaLN: layers x forwards of every adaLN
+                denoiser; affine: (layers + 1) x forwards of a LayoutDM
+                denoiser, forwards on the fused path, where K3 takes norm2);
 4. denoiser     flagship-width logits and posteriors with the kernel against
                 the same weights with the plain attention, float32;
 4a. fused_denoiser, v2_denoiser, smajor_denoiser: the same on each path
@@ -210,6 +214,13 @@ BWD_BF16_TOL = 1e-2
 # the largest output
 ADALN_EQUAL_SHARE = 0.999
 ADALN_F32_TOL = 1e-5
+# its affine mode against its plain version (tests/test_torch_cuda.py): the
+# float32 statistics in another summation order move a value by a few ulps
+# (under LN_F32_TOL at |w y + b| < 10); a bfloat16 output also by its own
+# rounding, half a bf16 step (at most 2**-8 of the value), and bit-equal on
+# LN_EQUAL_SHARE of the outputs
+LN_F32_TOL = 1e-5
+LN_EQUAL_SHARE = 0.999
 # float32 parameter gradients of one train step, kernels against plain
 # versions, relative to the largest gradient: attention differs by
 # summation order (~1e-6), carried through 4 layers of backward GEMMs and
@@ -231,6 +242,9 @@ KERNELS = {
     # no pallas_call: XLA fused the JAX AdaLayerNorm's ops on the TPU
     "ada_layer_norm": ("layoutdm_tpu_torch/csrc/adaln.cu",
                        "none (layoutdm_tpu/models/nn.py:124 AdaLayerNorm, fused by XLA)"),
+    # the same kernel's affine mode, bf16 -> bf16 (each Block's norm2)
+    "layer_norm": ("layoutdm_tpu_torch/csrc/adaln.cu",
+                   "none (flax nn.LayerNorm in layoutdm_tpu/models/nn.py, fused by XLA)"),
 }
 # inputs that sharpen the softmax: q and k scaled by this (scores by its
 # square), so one key takes most of a row's weight
@@ -758,11 +772,33 @@ def check_adaln(what: str, got: torch.Tensor, x: torch.Tensor, cond: torch.Tenso
     return {"max_abs_err": err, "equal_share": equal}
 
 
+def check_ln(what: str, got: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+             b: torch.Tensor) -> dict:
+    """The LayerNorm kernel's affine mode against its plain version: every
+    output within LN_F32_TOL of the float32 plain value, and a bfloat16
+    output within half a bf16 step more, bit-equal to the plain version's
+    cast on at least LN_EQUAL_SHARE of the outputs.  Returns the max abs
+    error and the share bit-equal."""
+    from layoutdm_tpu_torch.ops.adaln import layer_norm_reference
+
+    ref = layer_norm_reference(x, w, b, torch.float32)
+    diff = (got.float() - ref).abs()
+    err = diff.max().item()
+    equal = (got == ref.to(got.dtype)).float().mean().item()
+    tol = LN_F32_TOL + (2 ** -8 * ref.abs() if got.dtype == torch.bfloat16 else 0.0)
+    ok = (got.shape == x.shape and bool(np.isfinite(err)) and bool((diff <= tol).all())
+          and equal >= (LN_EQUAL_SHARE if got.dtype == torch.bfloat16 else 0.0))
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {err}, bit-equal share {equal}")
+    return {"max_abs_err": err, "equal_share": equal}
+
+
 def phase_adaln_kernel(device="cuda") -> dict:
-    """The adaLN norm1 kernel against its plain version (float32 and
-    bfloat16, ragged rows, d_model 64 to 1024), and its time at the
-    sampling cells' shapes beside its bound and the plain path (no library
-    call computes the function)."""
+    """The denoiser's LayerNorm kernel against its plain versions: the
+    adaLN norm1 mode (float32 and bfloat16) and the affine mode (float32,
+    bfloat16, and bfloat16 to float32), ragged rows, d_model 64 to 1024;
+    and the times of the bfloat16 modes at the sampling cells' shapes
+    beside their bounds and the plain paths (no library call timed)."""
     from layoutdm_tpu_torch.ops import adaln
 
     g = torch.Generator().manual_seed(17)
@@ -786,7 +822,26 @@ def phase_adaln_kernel(device="cuda") -> dict:
         errs[name], shares[name] = r["max_abs_err"], r["equal_share"]
         del x, cond, got
 
-    times = {}
+    def affine(rows, d, dtype):
+        return (_randn(g, (rows, d), 2.0, 0.3).to(device, dtype),
+                _randn(g, (d,), 0.3, 1.0).to(device), _randn(g, (d,), 0.5).to(device))
+
+    ln_cases = [(f"{name}_{o}", B * S, D, bf16, out_dtype) for name, B, S in TIMED_SHAPES
+                for o, out_dtype in (("bf16", bf16), ("f32", f32))]
+    ln_cases += [("r1000_f32", 1000, D, f32, f32), ("ragged_r21_bf16", 21, D, bf16, bf16),
+                 ("d64_bf16", 132, 64, bf16, bf16), ("d64_bf16_f32", 132, 64, bf16, f32),
+                 ("d64_f32", 132, 64, f32, f32), ("d1024_bf16_f32", 33, 1024, bf16, f32),
+                 ("d1024_f32", 33, 1024, f32, f32)]
+    ln_errs, ln_shares = {}, {}
+    for name, rows, d, dtype, out_dtype in ln_cases:
+        x, w, b = affine(rows, d, dtype)
+        got = adaln.layer_norm(x, w, b, out_dtype)
+        torch.cuda.synchronize()
+        r = check_ln(f"affine LN case {name}", got, x, w, b)
+        ln_errs[name], ln_shares[name] = r["max_abs_err"], r["equal_share"]
+        del x, w, b, got
+
+    times, ln_times = {}, {"bf16": {}, "f32": {}}
     for name, B, S in TIMED_SHAPES:
         x, cond = inputs(B, S, D, bf16)
         times[name] = {
@@ -797,9 +852,23 @@ def phase_adaln_kernel(device="cuda") -> dict:
             **bound(2 * B * S * D * 2 + B * 2 * D * 4, 0),
         }
         del x, cond
+        x, w, b = affine(B * S, D, bf16)
+        for o, out_dtype in (("bf16", bf16), ("f32", f32)):
+            ln_times[o][name] = {
+                "kernel_ms": cuda_ms(lambda: adaln.layer_norm(x, w, b, out_dtype)),
+                "plain_ms": cuda_ms(lambda: adaln.layer_norm_reference(x, w, b, out_dtype)),
+                "library_ms": None,  # none timed
+                # read x, w and b once, write out
+                **bound(B * S * D * (2 + out_dtype.itemsize) + 2 * D * 4, 0),
+            }
+        del x, w, b
         torch.cuda.empty_cache()
     out = {"phase": "adaln_kernel", "max_abs_err": errs, "equal_share": shares,
-           "times": times}
+           "times": times,
+           # the affine mode; its "times" are bf16 -> bf16 (norm2), the
+           # kernels row's; "times_f32_out" bf16 -> float32 (the head's norm)
+           "layer_norm": {"max_abs_err": ln_errs, "equal_share": ln_shares,
+                          "times": ln_times["bf16"], "times_f32_out": ln_times["f32"]}}
     emit(out)
     return out
 
@@ -861,13 +930,14 @@ def path_switches(path: str) -> dict:
 
 
 def launch_counts() -> dict:
-    """The kernel wrappers' launch counters."""
+    """The kernel wrappers' launch counters (``LN``: the LayerNorm kernel's
+    affine mode)."""
     from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
 
     return {"K1": attention.LAUNCHES, "K2": attention.LAUNCHES_BWD,
             "K3": ffn.LAUNCHES_FFN, "K4": attention.LAUNCHES_BLOCK,
             "K5": attention_blockdiag.LAUNCHES_BLOCKDIAG, "K6": attention.LAUNCHES_SMAJOR,
-            "adaLN": adaln.LAUNCHES_ADALN}
+            "adaLN": adaln.LAUNCHES_ADALN, "LN": adaln.LAUNCHES_LN}
 
 
 def reset_launches() -> None:
@@ -875,7 +945,7 @@ def reset_launches() -> None:
 
     attention.LAUNCHES = attention.LAUNCHES_BWD = attention.LAUNCHES_BLOCK = 0
     attention.LAUNCHES_SMAJOR = ffn.LAUNCHES_FFN = attention_blockdiag.LAUNCHES_BLOCKDIAG = 0
-    adaln.LAUNCHES_ADALN = 0
+    adaln.LAUNCHES_ADALN = adaln.LAUNCHES_LN = 0
 
 
 def adaln_blocks(model) -> int:
@@ -890,14 +960,42 @@ def adaln_blocks(model) -> int:
                for m in model.net.modules())
 
 
-def check_path_launches(what: str, path: str, per_kernel: int, adaln=None) -> dict:
+def ln_norms(model) -> int:
+    """Affine LayerNorm kernel launches of one forward without autograd of
+    ``model``'s single-stack denoiser: each Block's plain norm1 and its
+    norm2 (but where K3 takes it), and the head's norm, at widths and
+    dtypes the kernel takes."""
+    from layoutdm_tpu_torch.models.nn import Block, CategoricalAggregatedTransformer
+    from layoutdm_tpu_torch.ops.adaln import can_use_fused_ln
+
+    net, n = model.net, 0
+    for m in net.modules():
+        if isinstance(m, Block) and can_use_fused_ln(m.linear1.in_features, m.dtype, m.dtype):
+            n += isinstance(m.norm1, torch.nn.LayerNorm) + (not m.fused_ffn)
+    head = net.head_norm if hasattr(net, "head_norm") else net.norm
+    # the aggregated model's head reads the float32 expansion of the elements
+    head_in = torch.float32 if isinstance(net, CategoricalAggregatedTransformer) else net.dtype
+    return n + can_use_fused_ln(head.normalized_shape[0], head_in, torch.float32)
+
+
+def ln_launches(path: str, layers: int, forwards: int) -> int:
+    """Affine LayerNorm kernel launches of ``forwards`` LayoutDM denoiser
+    forwards on ``path``: each layer's norm2 (K3 takes it on the fused
+    path) and the head's norm."""
+    return ((path != "fused") * layers + 1) * forwards
+
+
+def check_path_launches(what: str, path: str, per_kernel: int, adaln=None, *, ln) -> dict:
     """Inference launches since the last reset: ``per_kernel`` for each
     kernel of ``path``, ``adaln`` adaLN launches (by default
     ``per_kernel``: a LayoutDM denoiser, whose every layer's norm1 takes
-    the kernel), none of the other forward kernels."""
+    the kernel), ``ln`` affine LayerNorm launches (None: not held, for a
+    model whose forwards `ln_norms` does not count), none of the other
+    forward kernels."""
     got = {k: v for k, v in launch_counts().items() if k != "K2"}
     want = {k: per_kernel if k in PATH_KERNELS[path] else 0 for k in got}
     want["adaLN"] = per_kernel if adaln is None else adaln
+    want["LN"] = got["LN"] if ln is None else ln
     if got != want or per_kernel == 0:
         raise AssertionError(f"{what}: launches {got} != {want}")
     return got
@@ -925,7 +1023,8 @@ def phase_path_denoiser(path: str, device="cuda", batch=8, cfg=None) -> dict:
         t = torch.full((batch,), T // 2, device=device)
         reset_launches()
         got = model.net(ids, t)
-        check_path_launches(f"{path} forward", path, layers)
+        check_path_launches(f"{path} forward", path, layers,
+                            ln=ln_launches(path, layers, 1))
         want = default.net(ids, t)
         logit_err = (got - want).abs().max().item()
         if not (torch.isfinite(got).all() and logit_err <= DENOISER_TOL):
@@ -1278,10 +1377,12 @@ def check_decoded(what: str, out: dict, B: int, cfg) -> int:
     return n
 
 
-def _no_launches(what: str) -> dict:
-    """Masked attention never reaches a kernel: every count is 0."""
+def _no_launches(what: str, ln: bool = True) -> dict:
+    """Masked attention never reaches a kernel: every count is 0 (the
+    LayerNorms' affine mode too, but where ``ln`` is False: a masked
+    forward without autograd takes it)."""
     got = launch_counts()
-    if any(got.values()):
+    if any(v for k, v in got.items() if ln or k != "LN"):
         raise AssertionError(f"{what}: kernels launched on masked calls: {got}")
     return got
 
@@ -1464,11 +1565,13 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
         if family in CHAIN_FAMILIES:
             T = model.q.num_timesteps if hasattr(model, "q") else model.num_timesteps
             sample_launches = check_path_launches(f"{family} chain", "default", layers * T,
-                                                  adaln=adaln_blocks(model) * T)
+                                                  adaln=adaln_blocks(model) * T,
+                                                  ln=ln_norms(model) * T)
         elif family == "bart":  # the encoder once; the decoder is masked
-            sample_launches = check_path_launches("bart encoder", "default", layers, adaln=0)
+            sample_launches = check_path_launches("bart encoder", "default", layers, adaln=0,
+                                                  ln=None)
         else:
-            sample_launches = _no_launches(f"{family} sampling")
+            sample_launches = _no_launches(f"{family} sampling", ln=False)
         if family in CONTINUOUS:
             ids, layouts = layouts, model.tokenizer.decode(layouts)
             held = cond.strong_mask
@@ -1494,6 +1597,7 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
             sec = time.perf_counter() - t0
             k3_launches = launch_counts()
             want = {k: layers * T if k == "K3" else 0 for k in k3_launches}
+            want["LN"] = ln_norms(fused) * T  # norm1 and the head: K3 takes norm2
             if k3_launches != want:
                 raise AssertionError(f"maskgit fused_ffn launches {k3_launches} != {want}")
             blk = fused.net.backbone.layers[0]
@@ -1601,7 +1705,9 @@ def zoo_paths(device="cuda", cfgs=None, batch=8) -> dict:
                 if family == "bart":
                     # the encoder runs twice (the memory, then the logits);
                     # under fused_ffn the decoder's full-sequence FFN takes K3
-                    launches = {k: v for k, v in launch_counts().items() if k != "K2"}
+                    # (its LayerNorms' launches are not held: `ln_norms`
+                    # counts single-stack denoisers)
+                    launches = {k: v for k, v in launch_counts().items() if k not in ("K2", "LN")}
                     want_l = {k: 2 * layers if k in PATH_KERNELS[path] else 0 for k in launches}
                     if path == "fused":
                         want_l["K3"] = 3 * layers
@@ -1609,7 +1715,8 @@ def zoo_paths(device="cuda", cfgs=None, batch=8) -> dict:
                         raise AssertionError(f"bart {path}: launches {launches} != {want_l}")
                 else:
                     launches = check_path_launches(f"{family} {path}", path, layers,
-                                                   adaln=adaln_blocks(model))
+                                                   adaln=adaln_blocks(model),
+                                                   ln=ln_norms(model))
                 err = max((g - w).abs().max().item() for g, w in zip(got, want))
                 if not (err <= DENOISER_TOL and all(torch.isfinite(g).all() for g in got)):
                     raise AssertionError(f"{family} {path}: max abs err {err} against default")
@@ -1870,8 +1977,9 @@ def phase_sample_cli(work_dir: str, device="cuda", num_samples=16, num_timesteps
                 os.environ[k] = v
     with open(f"{work_dir}/job/config.json") as f:
         layers = json.load(f)["backbone"]["num_layers"]
-    launches = check_path_launches(
-        "sample_cli", path, layers * len(SAMPLE_TASKS) * 2 * num_timesteps)
+    forwards = len(SAMPLE_TASKS) * 2 * num_timesteps
+    launches = check_path_launches("sample_cli", path, layers * forwards,
+                                   ln=ln_launches(path, layers, forwards))
     out = {"phase": "sample_cli", "path": path, "tasks": list(SAMPLE_TASKS),
            "ms_per_sample": results, "violation_rate": rates["relation"],
            "num_samples": num_samples, "num_timesteps": num_timesteps,
@@ -2256,6 +2364,7 @@ def phase_serve(device="cuda", cfg=None, ladder=(25, 100), max_batch=64,
         launches = check_path_launches(
             f"{path} serve (num_layers x {steps} steps)", path,
             cfg.backbone.num_layers * steps,
+            ln=ln_launches(path, cfg.backbone.num_layers, steps),
         )
     finally:
         httpd.shutdown()
@@ -2391,8 +2500,8 @@ def phase_int8(device="cuda", batch=1024, cfg=None, check_batch=64, latency_step
     _, default_s = chain(default_ps, batch)
     reset_launches()
     out, int8_s = chain(int8_ps, batch)
-    # the int8 mirror runs its own norm1, not `AdaLayerNorm`
-    launches = check_path_launches("int8 chain", "default", bb.num_layers * T, adaln=0)
+    # the int8 mirror runs its own norms, not `AdaLayerNorm` or `affine_norm`
+    launches = check_path_launches("int8 chain", "default", bb.num_layers * T, adaln=0, ln=0)
     elements = check_decoded("int8 chain", out, batch, cfg)
     ms_per_step = {}
     for b_ in (1, 64):
@@ -2570,7 +2679,9 @@ def phase_dryrun(device="cuda", smi="") -> dict:
     layers = flagship_config("float32").backbone.num_layers
     reset_launches()
     logits = fn(seq, t)
-    entry_launches = check_path_launches("entry", "default", layers) if on_card else {}
+    entry_launches = (check_path_launches("entry", "default", layers,
+                                          ln=ln_launches("default", layers, 1))
+                      if on_card else {})
     if not (logits.shape == (2, 125, 155) and bool(torch.isfinite(logits).all())):
         raise AssertionError(f"entry logits {tuple(logits.shape)}")
     entry_s = time.perf_counter() - t0
@@ -2622,7 +2733,8 @@ def phase_demo(work_dir: str, device="cuda", untrained_overrides=()) -> dict:
         if not (all(files.values()) and out["gif_frames"] == out["num_timesteps"]):
             raise AssertionError(f"demo {mode}: files {files}, {out['gif_frames']} GIF frames")
         steps = 6 * out["num_timesteps"]
-        launches = (check_path_launches(f"demo {mode}", "default", out["num_layers"] * steps)
+        launches = (check_path_launches(f"demo {mode}", "default", out["num_layers"] * steps,
+                                        ln=ln_launches("default", out["num_layers"], steps))
                     if torch.device(device).type == "cuda" else {})
         res[mode] = {"seconds": sec, "files": files, "gif_frames": out["gif_frames"],
                      "chain_steps": steps, "launches": launches}
@@ -2810,6 +2922,7 @@ def main() -> int:
         "attention_qkv_smajor": run(phase_smajor_kernel),
         "ada_layer_norm": run(phase_adaln_kernel),
     }
+    kernel_phases["layer_norm"] = kernel_phases["ada_layer_norm"]["layer_norm"]
     run(phase_denoiser)
     for path in ("fused", "v2", "smajor"):
         run(phase_path_denoiser, path=path)
@@ -2844,6 +2957,7 @@ def main() -> int:
         "attention_blockdiag": serves["v2"]["launches"]["K5"],
         "attention_qkv_smajor": serves["smajor"]["launches"]["K6"],
         "ada_layer_norm": serves["default"]["launches"]["adaLN"],
+        "layer_norm": serves["default"]["launches"]["LN"],
     }
     rows = []
     for name, phase in kernel_phases.items():

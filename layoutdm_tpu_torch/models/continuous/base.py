@@ -34,6 +34,7 @@ from layoutdm_tpu_torch.models.nn import (
     LN_EPS,
     Dropout,
     TransformerEncoder,
+    affine_norm,
     denoiser_path,
     make_module,
     positional_embedding,
@@ -85,7 +86,7 @@ class ContinuousTransformer(nn.Module):
         if dropout is not None:
             h = dropout(h, EMB_DROPOUT)
         h = self.backbone(h.to(self.dtype), timestep, dropout)
-        return self.head(self.head_norm(h.float()))
+        return self.head(affine_norm(self.head_norm, h, torch.float32))
 
 
 class ContinuousDiffusionBase:

@@ -4,9 +4,14 @@ denoiser of ``layoutdm_tpu/models/nn.py``; reference
 
 Numerics follow the flax modules: parameters are float32; activations run
 in the model's compute ``dtype``; norm statistics are float32 and the vocab
-head runs in float32.  ``AdaLayerNorm`` runs its CUDA kernel (`ops.adaln`:
-the norm, its modulation and the cast in one pass) on a CUDA tensor without
-autograd, on every denoiser path, at the same rounding points.  ``Block``
+head runs in float32.  On a CUDA tensor without autograd every LayerNorm
+of the denoisers runs one pass of a CUDA kernel (`ops.adaln`), at the same
+rounding points as the plain path: ``AdaLayerNorm`` (the norm, its
+modulation and the cast), and through `affine_norm` each affine
+LayerNorm (each Block's ``norm2``, the plain ``norm1`` of a Block without
+timestep, `DecoderBlock`'s three, the heads' norms: float32 statistics
+and affine, the output in the compute dtype, or float32 before a float32
+head).  Training keeps the plain path and its numerics.  ``Block``
 keeps the reference's trunk-replacing norm1 quirk: x = norm1(x), then
 x + attn(x).  Attention runs at the native head width (58 at the
 flagship): the TPU package's head-padding to 64 lanes and lane-padded
@@ -67,6 +72,8 @@ from layoutdm_tpu_torch.ops.adaln import (
     ada_layer_norm,
     ada_layer_norm_reference,
     can_use_fused_adaln,
+    can_use_fused_ln,
+    layer_norm,
 )
 from layoutdm_tpu_torch.ops.attention import (
     can_use_fused_block,
@@ -145,6 +152,17 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     if split is not None:
         return split(x.to(dtype), layer.weight.to(dtype), bias)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def affine_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
+    """An affine LayerNorm of ``x`` (flax's: float32 statistics and affine)
+    rounded to ``dtype``: the kernel (`ops.adaln.layer_norm`) on a CUDA
+    tensor without autograd (it has no backward) at the widths and dtypes
+    it takes, the module's float32 call otherwise."""
+    if (x.is_cuda and not torch.is_grad_enabled()
+            and can_use_fused_ln(x.shape[-1], x.dtype, dtype)):
+        return layer_norm(x, norm.weight, norm.bias, dtype, norm.eps)
+    return norm(x.float()).to(dtype)
 
 
 def embed_tokens(table: torch.Tensor, seq: torch.Tensor, dtype) -> torch.Tensor:
@@ -395,7 +413,7 @@ class Block(nn.Module):
         if isinstance(self.norm1, (AdaLayerNorm, AdaInsNorm)):
             x = self.norm1(x, timestep)
         else:
-            x = self.norm1(x.float())
+            x = affine_norm(self.norm1, x, self.dtype)
         # the trunk is REPLACED by norm1(x) (reference quirk), and the
         # residual stream is carried in the compute dtype
         x = x.to(self.dtype)
@@ -418,7 +436,7 @@ class Block(nn.Module):
                     self.linear1.bias, self.linear2.weight, self.linear2.bias,
                     self.activation_name, LN_EPS,
                 )
-            h = self.norm2(x.float())
+            h = affine_norm(self.norm2, x, self.dtype)
             h = self.activation(_linear(h, self.linear1, self.dtype))
             # the hidden's own columns where `parallel.tp` splits the FFN
             h = _linear(drop(h, self.dropout, getattr(self.linear1, "tensor_parallel", None)),
@@ -529,7 +547,7 @@ class CategoricalTransformer(nn.Module):
         if not self.lookahead:
             mask = torch.triu(torch.full((S, S), -torch.inf, device=seq.device), diagonal=1)
         h = self.backbone(h.to(self.dtype), timestep, dropout, mask, key_padding_mask)
-        return self.head(self.head_norm(h.float()))
+        return self.head(affine_norm(self.head_norm, h, torch.float32))
 
     def new_cache(self, batch: int) -> KVCache:
         """Empty decode caches for ``batch`` rows, as long as the positions."""
@@ -546,7 +564,7 @@ class CategoricalTransformer(nn.Module):
         h = h + self.pos(1, position=cache.index)
         h = self.backbone(h.to(self.dtype), timestep, cache=cache)
         cache.index += 1
-        return self.head(self.head_norm(h.float()))
+        return self.head(affine_norm(self.head_norm, h, torch.float32))
 
 
 @torch.no_grad()
@@ -615,7 +633,7 @@ class CategoricalAggregatedTransformer(nn.Module):
         h = h + self.pos(S // A)
         h = self.backbone(h.to(self.dtype), timestep, dropout, None, key_padding_mask)
         h = F.relu(self.dec(h.float())).reshape(B, S, d)
-        return self.head(self.head_norm(h))
+        return self.head(affine_norm(self.head_norm, h, torch.float32))
 
 
 class CrossAttention(nn.Module):
@@ -682,14 +700,15 @@ class DecoderBlock(nn.Module):
         token against ``layer``'s self-attention caches and its prefilled
         cross keys and values (``memory`` is then unused)."""
         drop = dropout or (lambda h, rate, cols=None: h)
-        h = self.norm1(x.float())
+        h = affine_norm(self.norm1, x, self.dtype)
         if cache is not None:
             h = self.self_attn.decode_step(h, cache, layer)
         else:
             h = self.self_attn(h, dropout, mask=mask)
         x = x + drop(h, self.dropout)
         kv = None if cache is None else (cache.cross_keys[layer], cache.cross_values[layer])
-        x = x + drop(self.cross_attn(self.norm2(x.float()), memory, kv), self.dropout)
+        x = x + drop(self.cross_attn(affine_norm(self.norm2, x, self.dtype), memory, kv),
+                     self.dropout)
         if (self.fused_ffn and cache is None and dropout is None
                 and not torch.is_grad_enabled()):
             return fused_ln_ffn_residual(
@@ -697,7 +716,8 @@ class DecoderBlock(nn.Module):
                 self.linear1.bias, self.linear2.weight, self.linear2.bias,
                 self.activation_name, LN_EPS,
             )
-        h = self.activation(_linear(self.norm3(x.float()), self.linear1, self.dtype))
+        h = self.activation(_linear(affine_norm(self.norm3, x, self.dtype), self.linear1,
+                                    self.dtype))
         return x + drop(_linear(h, self.linear2, self.dtype), self.dropout)
 
 
@@ -757,7 +777,7 @@ class CategoricalEncDecTransformer(nn.Module):
         h = h.to(self.dtype)
         for blk in self.decoder:
             h = blk(h, memory, causal, dropout)
-        return self.head(self.head_norm(h.float()))
+        return self.head(affine_norm(self.head_norm, h, torch.float32))
 
     def new_cache(self, batch: int, memory: torch.Tensor) -> KVCache:
         """Decode caches for ``batch`` rows: empty self-attention caches as
@@ -780,7 +800,7 @@ class CategoricalEncDecTransformer(nn.Module):
         for i, blk in enumerate(self.decoder):
             h = blk(h, None, cache=cache, layer=i)
         cache.index += 1
-        return self.head(self.head_norm(h.float()))
+        return self.head(affine_norm(self.head_norm, h, torch.float32))
 
 
 class LayoutElementEncoder(nn.Module):
@@ -843,7 +863,7 @@ class ElementTransformer(nn.Module):
             S = label.shape[1]
             mask = torch.triu(torch.full((S, S), -torch.inf, device=label.device), diagonal=1)
         h = self.backbone(h.to(self.dtype), timestep, dropout, mask, key_padding_mask)
-        return self.dec(self.norm(h.float()))
+        return self.dec(affine_norm(self.norm, h, torch.float32))
 
 
 def denoiser_path(net: nn.Module) -> str:

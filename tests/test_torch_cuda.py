@@ -1,6 +1,7 @@
 """The port on a CUDA card: the hand-written kernels (K1 attention forward,
 K2 its backward, K3 LayerNorm-FFN-residual, K4 attention block, K5
-padded-head attention, K6 sequence-major attention, the adaLN norm1)
+padded-head attention, K6 sequence-major attention, the LayerNorm kernel
+in its adaLN norm1 and affine modes)
 against their plain versions, the denoiser (every path), the per-row noise and the FIDNet
 feature extractor on the card against the CPU.  Every test here is marked ``cuda`` and skips without a card.
 
@@ -466,8 +467,9 @@ def test_adaln_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def test_adaln_kernel_runs_on_the_sampling_chain(cuda):
-    """A chain launches the kernel once a layer and step; a forward under
-    autograd takes the plain version."""
+    """A chain launches the adaLN mode once a layer and step, the affine
+    mode once a layer (norm2) and once for the head a step; a forward under
+    autograd takes the plain versions."""
     from layoutdm_tpu_torch.ops import adaln
 
     cfg = build_train_config("layoutdm", "synthetic", [
@@ -478,13 +480,88 @@ def test_adaln_kernel_runs_on_the_sampling_chain(cuda):
         "model.num_timesteps=10", "backbone.diffusion_step=10", "model.dtype=bfloat16",
     ])
     model = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
-    before = adaln.LAUNCHES_ADALN
+    before, before_ln = adaln.LAUNCHES_ADALN, adaln.LAUNCHES_LN
     ids = model.sample_ids(torch.Generator(cuda).manual_seed(1), 3)
     torch.cuda.synchronize()
     assert adaln.LAUNCHES_ADALN == before + 2 * 10
+    assert adaln.LAUNCHES_LN == before_ln + (2 + 1) * 10
     logits = model.net(ids.clone(), torch.full((3,), 4, device=cuda))
     logits.float().sum().backward()
     assert adaln.LAUNCHES_ADALN == before + 2 * 10
+    assert adaln.LAUNCHES_LN == before_ln + (2 + 1) * 10
+
+
+# the affine mode against its plain version (F.layer_norm in float32 on the
+# card, then the cast): both take float32 statistics, in another summation
+# order, so the float32 values differ by a few ulps of the normalised value
+# times w (LN_F32_TOL covers it at these inputs, |w y + b| < 10).  A float32
+# output is held to that alone; a bfloat16 output to it plus the output's
+# own rounding, half a bf16 step (at most 2**-8 of the value), and bit-equal to
+# the plain version's cast on at least LN_EQUAL_SHARE of the outputs: a
+# float32 value that straddles a rounding boundary is rare.
+LN_F32_TOL = 1e-5
+LN_EQUAL_SHARE = 0.999
+LN_CASES = [
+    (128000, 464, torch.bfloat16, torch.bfloat16),  # a sampling cell's norm2
+    (128000, 464, torch.bfloat16, torch.float32),   # its head's norm
+    (1000, 464, torch.float32, torch.float32),
+    (21, 464, torch.bfloat16, torch.bfloat16),      # a block of 8 rows cut short
+    (132, 64, torch.bfloat16, torch.bfloat16),
+    (132, 64, torch.bfloat16, torch.float32),
+    (132, 64, torch.float32, torch.float32),
+    (33, 1024, torch.bfloat16, torch.float32),      # the gate's widest
+    (33, 1024, torch.float32, torch.float32),
+]
+
+
+def _ln_inputs(rows, D, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (2 * torch.randn((rows, D), generator=g) + 0.3).to(device, dtype)
+    w = (1 + 0.3 * torch.randn(D, generator=g)).to(device)
+    b = (0.5 * torch.randn(D, generator=g)).to(device)
+    return x, w, b
+
+
+def _assert_ln_close(got, x, w, b, out_dtype):
+    from layoutdm_tpu_torch.ops.adaln import layer_norm_reference
+
+    ref = layer_norm_reference(x, w, b, torch.float32)
+    assert got.dtype == out_dtype and got.shape == x.shape
+    err = (got.float() - ref).abs()
+    tol = LN_F32_TOL + (2 ** -8 * ref.abs() if out_dtype == torch.bfloat16 else 0.0)
+    assert bool((err <= tol).all()), f"max err {err.max().item()}"
+    if out_dtype == torch.bfloat16:
+        equal = (got == ref.to(out_dtype)).float().mean().item()
+        assert equal >= LN_EQUAL_SHARE, equal
+
+
+@pytest.mark.parametrize("rows,D,dtype,out_dtype", LN_CASES)
+def test_ln_kernel_matches_plain_version(cuda, rows, D, dtype, out_dtype):
+    from layoutdm_tpu_torch.ops import adaln
+
+    x, w, b = _ln_inputs(rows, D, dtype, cuda)
+    before = adaln.LAUNCHES_LN
+    got = adaln.layer_norm(x, w, b, out_dtype)
+    torch.cuda.synchronize()
+    assert adaln.LAUNCHES_LN == before + 1
+    _assert_ln_close(got, x, w, b, out_dtype)
+
+
+def test_ln_kernel_rejects_what_it_does_not_take(cuda):
+    from layoutdm_tpu_torch.ops.adaln import layer_norm
+
+    bf16 = torch.bfloat16
+    x, w, b = _ln_inputs(10, 64, bf16, cuda)
+    with pytest.raises(ValueError):  # no whole bf16 vectors
+        layer_norm(x[:, :60].contiguous(), w[:60], b[:60], bf16)
+    with pytest.raises(ValueError):  # no call site narrows float32
+        layer_norm(x.float(), w, b, bf16)
+    with pytest.raises(ValueError):
+        layer_norm(x.T.contiguous().T, w, b, bf16)
+    with pytest.raises(ValueError):
+        layer_norm(x, w.cpu(), b, bf16)
+    with pytest.raises(TypeError):
+        layer_norm(x, w.to(bf16), b, bf16)
 
 
 def _block_params(rs, D, device, dtype, sharp=1.0):
