@@ -15,6 +15,15 @@ no extractor weights are in the repo), and checks them:
 
 1. device       card name, power limit, nvcc version, the seven kernels
                 built in parallel, their build times and ptxas reports;
+1a. long_body   K1's long bf16 body (128 < S <= 512): one launch of one
+                attention_fwd::attention_bf16_kernel a call at both timed
+                shapes, within the plain version's tolerance, taken
+                (LAUNCHES_LONG) at S = 500 and not at 125; over one chain,
+                K1 and the long body layers x steps at S = 500
+                (PubLayNet-shaped), the long body none at S = 125.  It runs
+                before the other phases: after the kernel phases below
+                torch.profiler has read no launch of a ctypes-launched
+                kernel on the card (torch 2.11, CUDA 12.8);
 2. kernel       the CUDA attention kernel (K1) against its plain PyTorch
                 version at the serving shapes, on sharp scores, at the tile
                 edges (S = 1, 127, 128, 129) and in every copy mode and
@@ -304,16 +313,17 @@ def sdpa_views(qkv: torch.Tensor, num_heads: int):
     return qkv.view(B, S, 3, num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, launches=False) -> list:
     """Names of the CUDA kernels one call of ``fn`` launches (which backend
-    a library call picked)."""
+    a library call picked); with ``launches``, a name a launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.name[:100] for e in prof.events() if e.device_type == DeviceType.CUDA})
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return names if launches else sorted({name[:100] for name in names})
 
 
 def flagship_config(dtype: str):
@@ -424,6 +434,8 @@ def phase_kernel(device="cuda") -> dict:
     times = {}
     for name, B, S in TIMED_SHAPES:
         qkv = slab(B, S, 8, 58, torch.bfloat16)
+        errs[name] = check_attention(f"K1 at {name}", fused_attention_qkv(qkv, 8),
+                                     attention_qkv_reference(qkv, 8))
         q, k, v = sdpa_views(qkv, 8)
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
         times[name] = {
@@ -436,6 +448,62 @@ def phase_kernel(device="cuda") -> dict:
             **bound(B * S * 4 * 464 * 2, 4 * B * S * S * 464),
         }
     out = {"phase": "kernel", "max_abs_err": errs, "times": times}
+    emit(out)
+    return out
+
+
+def phase_long_body(device="cuda", chain_batch=16, cfgs=None, shapes=TIMED_SHAPES) -> dict:
+    """K1's long bf16 body (128 < S <= 512, each (row, head)'s K and V held
+    in shared memory): one call at each timed shape is one launch of one
+    kernel named attention_fwd::attention_bf16_kernel, within the tolerance
+    of the plain version, and takes the long body (``LAUNCHES_LONG``) at
+    S=500, not at S=125; over one chain of a PubLayNet-shaped model (S=500)
+    K1 and the long body launch layers x steps, over one of the Rico25
+    model (S=125) K1 layers x steps and the long body none.  The wrappers
+    count nothing on the CPU."""
+    from layoutdm_tpu_torch.bench.headline import build_flagship, flagship_config
+    from layoutdm_tpu_torch.configs import SamplingConfig
+    from layoutdm_tpu_torch.ops import attention
+    from layoutdm_tpu_torch.ops.attention import attention_qkv_reference, fused_attention_qkv
+
+    on_card = device != "cpu"
+    g = torch.Generator().manual_seed(6)
+    calls = {}
+    for name, B, S in shapes:
+        qkv = torch.randn((B, S, 3 * FLAG_H * FLAG_HD), generator=g).to(device, torch.bfloat16)
+        before = attention.LAUNCHES_LONG
+        got = []
+        call = lambda: got.append(fused_attention_qkv(qkv, FLAG_H))
+        names = device_kernels(call, launches=True) if on_card else call() or []
+        took = attention.LAUNCHES_LONG - before
+        if on_card and not (len(names) == 1 and "attention_fwd::attention_bf16_kernel" in names[0]
+                            and re.search(K1_SYMBOL, names[0])):
+            raise AssertionError(f"K1 at {name}: launches {names}, one K1 kernel wanted")
+        if took != (on_card and S > 128):
+            raise AssertionError(f"K1 at {name}: long body taken {took} times")
+        err = check_attention(f"K1 at {name}", got[0], attention_qkv_reference(qkv, FLAG_H))
+        calls[name] = {"kernel": names[0] if on_card else None, "long_body": took,
+                       "max_abs_err": err}
+        del qkv, got
+        if on_card:
+            torch.cuda.empty_cache()
+    chains = {}
+    cfgs = cfgs or {"publaynet_s500": flagship_config("publaynet", 100),
+                    "rico25_s125": flagship_config()}
+    for name, cfg in cfgs.items():
+        model = build_flagship(cfg, device, seed=7)
+        steps = cfg.backbone.num_layers * cfg.model.num_timesteps
+        k1, k1_long = attention.LAUNCHES, attention.LAUNCHES_LONG
+        model.sample_ids(torch.Generator(device=device).manual_seed(8), chain_batch,
+                         sampling=SamplingConfig(name="random"))
+        got = {"K1": attention.LAUNCHES - k1, "K1_long": attention.LAUNCHES_LONG - k1_long}
+        long_chain = model.seq_len > 128
+        want = {"K1": steps * on_card, "K1_long": steps * on_card * long_chain}
+        if got != want:
+            raise AssertionError(f"{name} chain: launches {got}, {want} wanted")
+        chains[name] = {"seq_len": model.seq_len, "layers_x_steps": steps, **got}
+        del model
+    out = {"phase": "long_body", "calls": calls, "chains": chains}
     emit(out)
     return out
 
@@ -717,6 +785,8 @@ def phase_smajor_kernel(device="cuda") -> dict:
     H, D = FLAG_H, FLAG_H * FLAG_HD
     for name, B, S in TIMED_SHAPES:
         qkv, bias = inputs(B, S, H, FLAG_HD, torch.bfloat16)
+        errs[name] = check_attention(f"K6 at {name}", fused_attention_qkv_smajor(qkv, bias, H),
+                                     attention_qkv_smajor_reference(qkv, bias, H))
 
         def library():
             # no single call: the bias add, the transpose to batch-major
@@ -944,6 +1014,7 @@ def reset_launches() -> None:
     from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
 
     attention.LAUNCHES = attention.LAUNCHES_BWD = attention.LAUNCHES_BLOCK = 0
+    attention.LAUNCHES_LONG = 0
     attention.LAUNCHES_SMAJOR = ffn.LAUNCHES_FFN = attention_blockdiag.LAUNCHES_BLOCKDIAG = 0
     adaln.LAUNCHES_ADALN = adaln.LAUNCHES_LN = 0
 
@@ -2742,7 +2813,9 @@ def phase_demo(work_dir: str, device="cuda", untrained_overrides=()) -> dict:
     return res
 
 
-K1_SYMBOL = r"attention_fwd::attention_(bf16|f32)_kernel<\s*\d+\s*,\s*false\s*>"
+# K1's symbol: <row width, false> (K6: true), and the long bf16 body's keys a
+# warpgroup after them
+K1_SYMBOL = r"attention_fwd::attention_(bf16|f32)_kernel<\s*\d+\s*,\s*false\s*(,\s*\d+\s*)?>"
 
 
 def phase_trace(work_dir: str, device="cuda", num_samples=16, num_timesteps=20) -> dict:
@@ -2835,8 +2908,12 @@ def phase_bench(work_dir: str, device="cuda", overrides=(), batch=1024, train_ba
     chain_steps = [c.backbone.num_layers * c.model.num_timesteps for c in (rico, rico, pub)]
     chains = sum(chain_steps) * (1 + runs)
     train = rico.backbone.num_layers * train_steps * (1 + runs)
-    want = {"K1": chains + train, "K2": train} if device != "cpu" else {"K1": 0, "K2": 0}
-    launches = {k: launch_counts()[k] for k in want}
+    # K1's long body: the S=500 chains alone
+    want = ({"K1": chains + train, "K2": train, "K1_long": chain_steps[2] * (1 + runs)}
+            if device != "cpu" else {"K1": 0, "K2": 0, "K1_long": 0})
+    from layoutdm_tpu_torch.ops import attention
+    launches = {**launch_counts(), "K1_long": attention.LAUNCHES_LONG}
+    launches = {k: launches[k] for k in want}
     if launches != want:
         raise AssertionError(f"bench headline launches {launches}, {want} wanted")
     for r, keys in zip(rows, (HEADLINE_KEYS, HEADLINE_KEYS[:6], TRAIN_ROW_KEYS,
@@ -2913,6 +2990,7 @@ def main() -> int:
 
     dev = run(phase_device)
     smi = dev["nvidia_smi"]
+    run(phase_long_body)  # first: see the module's note on it
     kernel_phases = {
         "attention_qkv": run(phase_kernel),
         "attention_qkv_bwd": run(phase_train_kernel),

@@ -9,8 +9,10 @@
 // in bfloat16 mode the normalised probabilities are rounded to bfloat16
 // before the p.v product, as the TPU kernel does.
 //
-// The kernel body, what bounds it and what its design does about that are
-// in attention_fwd.cuh, shared with K6 (the sequence-major slab).
+// The kernel bodies (bfloat16 at S <= 128, bfloat16 at 128 < S <= 512 with
+// each (row, head)'s K and V held in shared memory, float32), the rule
+// between them, what bounds each and what its design does about that are in
+// attention_fwd.cuh, shared with K6 (the sequence-major slab).
 
 #include "attention_fwd.cuh"
 
@@ -22,4 +24,10 @@ extern "C" int attention_qkv_launch(const void* qkv, void* out, int B, int S,
   const long long row = 3LL * H * hd;  // one token's q, k and v
   return attention_fwd::launch<false>(qkv, nullptr, out, B, S, H, hd, S * row,
                                       row, scale, dtype, stream);
+}
+
+// 1 where a call of S keys at head size hd in `dtype` takes the long bf16
+// body (attention_fwd::long_body, the rule launch_typed follows), else 0
+extern "C" int attention_qkv_long_body(int S, int hd, int dtype) {
+  return attention_fwd::long_body(S, hd, dtype) ? 1 : 0;
 }

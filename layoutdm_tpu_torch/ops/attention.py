@@ -38,11 +38,15 @@ import torch
 from layoutdm_tpu_torch.ops.cuda_build import BuiltLibrary, load_library
 
 # kernel launches made by the wrappers (the CPU path adds nothing); one K2
-# call counts once, though it runs two passes
+# call counts once, though it runs two passes.  LAUNCHES_LONG counts the K1
+# and K6 calls that took the long bf16 body (128 < S <= 512: each (row,
+# head)'s K and V held in shared memory), by the library's own rule
+# (`attention_fwd_long_body`)
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 LAUNCHES_BLOCK = 0
 LAUNCHES_SMAJOR = 0
+LAUNCHES_LONG = 0
 
 MAX_HEAD_DIM = 128
 # K4 stages one head (<= 64 wide) and a (64, D) row tile in shared memory
@@ -116,7 +120,18 @@ def kernel_library() -> BuiltLibrary:
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int
+    rule = built.lib.attention_qkv_long_body
+    rule.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]  # S, hd, dtype code
+    rule.restype = ctypes.c_int
     return built
+
+
+@functools.lru_cache(maxsize=None)
+def attention_fwd_long_body(S: int, hd: int, dtype: torch.dtype) -> bool:
+    """Whether a K1 or K6 call of S keys at head size hd in ``dtype`` takes
+    the long bf16 body: the launcher's rule (``attention_fwd::long_body``),
+    asked of K1's built library."""
+    return bool(kernel_library().lib.attention_qkv_long_body(S, hd, _DTYPE_CODE[dtype]))
 
 
 @functools.cache
@@ -151,7 +166,7 @@ def fused_attention_qkv(
 ) -> torch.Tensor:
     """Attention on the packed qkv slab; ``scale`` overrides 1/sqrt(hd)
     (a zero-padded head slab needs its true head size's scale)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_LONG
     B, S, D, hd = _split_dims(qkv, num_heads)
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads, scale)
@@ -168,6 +183,7 @@ def fused_attention_qkv(
     if err != 0:
         raise RuntimeError(f"attention_qkv kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_LONG += attention_fwd_long_body(S, hd, qkv.dtype)
     return out
 
 
@@ -282,7 +298,7 @@ def fused_attention_qkv_smajor(
     """Attention on the sequence-major packed slab ``qkv_sb`` (S, B, 3D)
     plus its qkv bias (3D,), any float dtype (cast to the slab's); returns
     (B, S, D).  ``scale`` overrides 1/sqrt(hd)."""
-    global LAUNCHES_SMAJOR
+    global LAUNCHES_SMAJOR, LAUNCHES_LONG
     S, B, D, hd = _split_smajor(qkv_sb, bias, num_heads)
     if qkv_sb.device.type == "cpu":
         return attention_qkv_smajor_reference(qkv_sb, bias, num_heads, scale)
@@ -300,6 +316,7 @@ def fused_attention_qkv_smajor(
     if err != 0:
         raise RuntimeError(f"attention_smajor kernel launch failed: CUDA error {err}")
     LAUNCHES_SMAJOR += 1
+    LAUNCHES_LONG += attention_fwd_long_body(S, hd, qkv_sb.dtype)
     return out
 
 

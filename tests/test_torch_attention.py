@@ -103,6 +103,33 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_no_launch():
     torch.testing.assert_close(out, attention_qkv_reference(qkv, 2), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("S,dtype", [(129, torch.bfloat16), (500, torch.bfloat16),
+                                     (513, torch.bfloat16), (500, torch.float32)])
+def test_long_body_counter_on_cpu(S, dtype):
+    """``LAUNCHES_LONG`` (K1 and K6 calls that took the long bf16 body, on
+    either side of its 512-key limit) is a plain integer that the CPU path
+    never moves; there both wrappers are their plain versions, and the plain
+    version still rounds at the kernel's points: float32 scores and softmax,
+    the normalised p rounded once to the io dtype, float32 p.v, one
+    rounding of the output."""
+    assert isinstance(attention.LAUNCHES_LONG, int)
+    B, H, hd = 1, 2, 8
+    rs = np.random.RandomState(S)
+    qkv = torch.as_tensor(rs.randn(B, S, 3 * H * hd).astype(np.float32)).to(dtype)
+    bias = torch.as_tensor(0.5 * rs.randn(3 * H * hd).astype(np.float32)).to(dtype)
+    counters = lambda: (attention.LAUNCHES, attention.LAUNCHES_SMAJOR, attention.LAUNCHES_LONG)
+    before = counters()
+    out = fused_attention_qkv(qkv, H)
+    out_sb = attention.fused_attention_qkv_smajor(qkv.transpose(0, 1).contiguous(), bias, H)
+    assert counters() == before
+    q, k, v = (x.reshape(B, S, H, hd).float() for x in qkv.split(H * hd, dim=-1))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * hd ** -0.5, dim=-1).to(dtype)
+    want = torch.einsum("bhqk,bkhd->bqhd", p.float(), v).reshape(B, S, H * hd).to(dtype)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    torch.testing.assert_close(out_sb, attention.attention_qkv_smajor_reference(
+        qkv.transpose(0, 1).contiguous(), bias, H), rtol=0, atol=0)
+
+
 def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         fused_attention_qkv(torch.zeros(2, 3, 10), 2)  # 3D not divisible by 3

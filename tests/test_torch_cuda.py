@@ -78,12 +78,32 @@ BLOCKDIAG_EDGES = [
     for dtype in (torch.float32, torch.bfloat16)
 ]
 # K1's and K6's: one key, the 128-key chunk (two sweeps past it), the
-# 128-query block, in both dtypes; and sharp scores on both sides of 128
+# 128-query block, in both dtypes; and sharp scores on both sides of 128.
+# In bf16 past 128 keys the long body: the keys split between its two
+# warpgroups (128 each up to 256 keys, 256 up to 512), its 64-query tiles,
+# its limit (512 keys at rows of 64) and the first S past it, heads it does
+# not take (hd 96; hd 124 by element copies), element copies (odd hd,
+# d_model 174), plain and sharp scores
 FWD_EDGES = [
     (2, S, 8, 58, dtype, 1.0)
     for S in (1, 127, 128, 129)
     for dtype in (torch.float32, torch.bfloat16)
-] + [(4, S, 8, 58, torch.bfloat16, SHARP) for S in (125, 129, 500)]
+] + [(4, S, 8, 58, torch.bfloat16, SHARP) for S in (125, 129, 500)] + [
+    (3, S, H, hd, torch.bfloat16, sharp)
+    for S in (129, 192, 255, 256, 257, 384, 500, 512, 513)
+    for H, hd in ((8, 58), (4, 64))
+    for sharp in (1.0, SHARP)
+] + [(2, S, 2, 124, torch.bfloat16, 1.0) for S in (129, 256, 257)] + [
+    (2, S, 2, 5, torch.bfloat16, SHARP) for S in (300, 512, 513)
+] + [(2, S, 2, 96, torch.bfloat16, 1.0) for S in (256, 257)] + [
+    (2, S, 3, 58, torch.bfloat16, 1.0) for S in (300, 512)
+] + [(2, S, 2, 57, torch.bfloat16, SHARP) for S in (129, 500)]
+
+
+def _takes_long_body(S, hd, dtype):
+    """The long body's rule: bf16, 128 < S <= 512, and a head that fits a
+    row of 64 (a 16-byte window puts a slice up to 6 elements in)."""
+    return dtype == torch.bfloat16 and 128 < S <= 512 and hd + (6 if hd % 8 else 0) <= 64
 
 
 def _assert_attention_close(got, want):
@@ -132,10 +152,13 @@ def test_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, scale, sharp):
     qkv = _slab(B, S, H, hd)
     qkv[..., : 2 * H * hd] *= sharp  # q and k
     qkv = torch.as_tensor(qkv).to(cuda, dtype)
-    before = attention.LAUNCHES
+    before, before_long = attention.LAUNCHES, attention.LAUNCHES_LONG
     got = fused_attention_qkv(qkv, H, scale=scale)
     torch.cuda.synchronize()
     assert attention.LAUNCHES == before + 1
+    long_body = _takes_long_body(S, hd, dtype)
+    assert attention.attention_fwd_long_body(S, hd, dtype) == long_body
+    assert attention.LAUNCHES_LONG == before_long + long_body
     want = attention_qkv_reference(qkv, H, scale=scale)
     assert got.dtype == dtype and got.shape == (B, S, H * hd)
     _assert_attention_close(got, want)
@@ -764,10 +787,11 @@ def test_smajor_kernel_matches_plain_version(cuda, B, S, H, hd, dtype, sharp):
     qkv[..., : 2 * H * hd] *= sharp  # q and k
     qkv = torch.as_tensor(qkv).to(cuda, dtype)
     bias = torch.as_tensor(0.5 * rs.randn(3 * H * hd).astype(np.float32)).to(cuda, dtype)
-    launches = attention.LAUNCHES_SMAJOR
+    launches, launches_long = attention.LAUNCHES_SMAJOR, attention.LAUNCHES_LONG
     got = attention.fused_attention_qkv_smajor(qkv, bias, H)
     torch.cuda.synchronize()
     assert attention.LAUNCHES_SMAJOR == launches + 1
+    assert attention.LAUNCHES_LONG == launches_long + _takes_long_body(S, hd, dtype)
     want = attention.attention_qkv_smajor_reference(qkv, bias, H)
     assert got.dtype == dtype and got.shape == (B, S, H * hd)
     _assert_attention_close(got, want)
