@@ -14,13 +14,14 @@ through its C entry point on the same bfloat16 inputs at the flagship widths
 (8 heads of 58, FFN 1856; K5 on heads padded to 64).
 
 1. Accuracy: both versions of K1, K6 and K4 against the plain version on
-   the cases `chip_smoke` adds for rounding the normalised softmax (q and k
-   scaled by ``chip_smoke.SHARP``; S = 127, 128, 129), one JSON line per
-   case with each version's max abs error and whether it is within
-   ``chip_smoke``'s tolerance.  Nothing is asserted here: a version that
-   rounds p at another point shows as ``false``.
+   the cases that show where the normalised softmax is rounded (q and k
+   scaled by ``SHARP``; S = 127, 128, 129), one JSON line per case with
+   each version's max abs error and whether it is within the port's
+   tolerance (``kernel_checks.py``, the on-card tests' tolerances and
+   checkers).  A base version that rounds p at another point shows as
+   ``false``; the new one must be within.
 2. Timing: on a slice of the batch the new version is held to the plain
-   version within ``chip_smoke``'s tolerances, the base version within a
+   version within those tolerances, the base version within a
    sanity bound (K5, K2: the same tolerances); then both are timed by CUDA
    events (median of 25) in the order base, new, new, base, at the serving
    batches (B = 1, 64, 1024 at S = 125) and at B = 256, S = 500.
@@ -40,6 +41,8 @@ import sys
 import torch
 
 import chip_smoke as smoke
+import kernel_checks as checks
+from layoutdm_tpu_torch.bench.common import cuda_ms
 from layoutdm_tpu_torch.ops import attention, attention_blockdiag, ffn
 from layoutdm_tpu_torch.ops.cuda_build import load_library
 
@@ -56,7 +59,7 @@ SHAPES = {  # (B, S) per kernel: the serving and throughput batches, and S = 500
     "K4": SERVE,
 }
 # (name, B, S, q and k scale) of the accuracy cases
-CASES = [(f"sharp_s{S}", 16, S, smoke.SHARP) for S in (125, 129)] + [
+CASES = [(f"sharp_s{S}", 16, S, checks.SHARP) for S in (125, 129)] + [
     (f"edge_s{S}", 16, S, 1.0) for S in (127, 128, 129)]
 # a base version that is off by more than this does not run the function
 SANITY_TOL = 0.1
@@ -96,9 +99,9 @@ def _slab(g, shape, sharp=1.0):
 
 
 def _attention_err(got, want) -> tuple:
-    """(max abs error, within chip_smoke's tolerance, mean error over the
-    mean |want|)."""
-    err, mean_rel, ok = smoke.attention_errors(got, want)
+    """(max abs error, within the tolerance, mean error over the mean
+    |want|)."""
+    err, mean_rel, ok = checks.attention_errors(got, want)
     return err, ok, mean_rel
 
 
@@ -140,16 +143,11 @@ def k6_call(fn, B, S, sharp=1.0):
 
 
 def _fused_err(got, want) -> tuple:
-    """K3's or K4's (max abs error, within chip_smoke's tolerance: 2**-7 of
-    the largest output, and for K4 the mean within ATTN_BF16_MEAN_REL; mean
+    """K3's or K4's (max abs error, within the tolerance: 2**-7 of the
+    largest output, and for K4 the mean within ATTN_BF16_MEAN_REL; mean
     error over the mean |want|)."""
-    diff = (got.float() - want.float()).abs()
-    mean_rel = diff.mean().item() / want.float().abs().mean().item()
-    try:
-        smoke._check_fused("", got, want)
-        return diff.max().item(), True, mean_rel
-    except AssertionError:
-        return diff.max().item(), False, mean_rel
+    err, ok = checks.fused_errors(got, want)
+    return err, ok, checks.attention_errors(got, want)[1]
 
 
 def k4_call(fn, B, S, sharp=1.0):
@@ -173,7 +171,7 @@ def k4_call(fn, B, S, sharp=1.0):
         sub = x[:8].contiguous()
         got = run(sub, torch.empty_like(sub))
         e = _fused_err(got, attention.attention_block_reference(sub, **p, num_heads=H))
-        return e[0], e[1] and e[2] <= smoke.ATTN_BF16_MEAN_REL, e[2]
+        return e[0], e[1] and e[2] <= checks.ATTN_BF16_MEAN_REL, e[2]
 
     return run, err
 
@@ -244,7 +242,7 @@ def k2_call(fn, B, S):
         got = run(sub, dsub, torch.empty_like(sub))
         want = attention.attention_qkv_bwd_reference(sub, dsub, H).float()
         rel = ((got.float() - want).abs().max() / want.abs().max()).item()
-        return rel, rel <= smoke.BWD_BF16_TOL, None
+        return rel, rel <= checks.BWD_BF16_TOL, None
 
     return run, err
 
@@ -282,7 +280,7 @@ def main(argv=None) -> int:
             assert err["new"][1] and err["base"][0] <= SANITY_TOL, err
             ms = {"base": [], "new": []}
             for v in ("base", "new", "new", "base"):
-                ms[v].append(smoke.cuda_ms(runs[v][0]))
+                ms[v].append(cuda_ms(runs[v][0]))
             print(json.dumps({"kernel": kernel, "B": B, "S": S,
                               "err": {v: e[0] for v, e in err.items()},
                               "mean_rel": {v: e[2] for v, e in err.items()}, "ms": ms}),

@@ -22,9 +22,11 @@ import torch
 
 from layoutdm_tpu_torch.utils.device import require_device  # noqa: F401  (re-exported)
 
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, at the 700 W
-# power limit; a card set below it runs slower under load
-PEAK_BF16_TFLOPS = 989.0
+# NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit (a card
+# set below it runs slower under load): HBM bytes/s, and operations/s in
+# bf16 on the tensor cores and in float32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the reference sampler on a CPU, measured before the JAX package existed
 # (BASELINE.md, "Measured baseline"); vs_baseline is a row's value over it
 CPU_REFERENCE_LAYOUTS_PER_SEC = 0.32
@@ -145,11 +147,21 @@ def mfu_fields(flops_per_item: float, items_per_s: float,
     """Achieved TFLOP/s, its share of the bf16 peak (``mfu``) and of the
     measured GEMM ceiling."""
     achieved = items_per_s * flops_per_item / 1e12
-    out = {"achieved_tflops": achieved, "mfu": achieved / PEAK_BF16_TFLOPS}
+    out = {"achieved_tflops": achieved, "mfu": achieved / (PEAK_FLOPS[torch.bfloat16] / 1e12)}
     if ceiling_tflops:
         out["gemm_ceiling_tflops"] = ceiling_tflops
         out["mfu_vs_gemm_ceiling"] = achieved / ceiling_tflops
     return out
+
+
+def bound(nbytes: float, flops: float, dtype=torch.bfloat16) -> Dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the dtype's peak, whichever is larger."""
+    mem_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(mem_ms, op_ms),
+            "bound_by": "bytes" if mem_ms >= op_ms else "operations",
+            "bytes": nbytes, "flops": flops}
 
 
 def random_layouts(rs: np.random.RandomState, batch: int, max_elements: int,

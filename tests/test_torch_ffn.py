@@ -70,7 +70,8 @@ def test_ffn_matches_jax_kernel_at_flagship_width(dtype, rows):
     """float32 within JAX's own tolerance; bfloat16 within 2**-7 of the
     largest output (|out| < 4 here): two rounding steps of it, from the
     hidden and the output rounded after float32 sums taken in another
-    order, as chip_smoke holds the kernel to this plain version."""
+    order, as tests/test_torch_cuda.py holds the kernel to this plain
+    version on the card."""
     rs = np.random.RandomState(rows)
     x = (rs.randn(rows, FLAG_D) * 0.5).astype(np.float32)
     p = {

@@ -151,7 +151,7 @@ def test_sample_mask_matches_jax_with_injected_scores():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("what", ["package", "chip_smoke", "profile_chain",
+@pytest.mark.parametrize("what", ["package", "chip_smoke", "kernel_checks", "profile_chain",
                                   "compare_kernels", "compare_end_to_end"])
 def test_port_imports_no_jax(what):
     """Every module of the port, and each of the port's scripts (imported,
