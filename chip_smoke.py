@@ -19,7 +19,8 @@ is timed at, and the phases below check launches, outputs and end-to-end
 results:
 
 1. device       card name, power limit, nvcc version, the seven kernels
-                built in parallel, their build times and ptxas reports;
+                and the GEMM epilogues' shim built in parallel, their
+                build times and ptxas reports;
 1a. k1_name     one K1 call at each timed shape is one launch of one
                 attention_fwd::attention_bf16_kernel as torch.profiler
                 names it.  It runs before every other phase that launches
@@ -36,7 +37,9 @@ results:
                 (SDPA, or the unfused path where no single call computes
                 it) and its bound, by CUDA events; each kernel's output
                 within its tolerance of its plain version's, its max abs
-                difference reported;
+                difference reported; and the FFN's GEMM pair through the
+                cuBLASLt epilogues' shim beside the eager chain it replaces
+                (B=1024, S=125);
 5. train        (a) bfloat16 train steps at B=1024, timed by the bench's
                 `headline.train_rates` (a warm-up run and 3 timed runs of
                 10 steps): samples/s (median and spread), peak memory,
@@ -227,7 +230,7 @@ def flagship_config(dtype: str):
 
 def phase_device() -> dict:
     from layoutdm_tpu_torch import native
-    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
+    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn, gemm_epilogue
     from layoutdm_tpu_torch.ops.cuda_build import find_nvcc
 
     smi = subprocess.run(
@@ -244,7 +247,8 @@ def phase_device() -> dict:
             "attention_block": attention.block_kernel_library,
             "attention_blockdiag": attention_blockdiag.kernel_library,
             "attention_qkv_smajor": attention.smajor_kernel_library,
-            "ada_layer_norm": adaln.kernel_library}
+            "ada_layer_norm": adaln.kernel_library,
+            "gemm_epilogue": gemm_epilogue.kernel_library}
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         futures = {name: pool.submit(build) for name, build in libs.items()}
         engine = pool.submit(native.library)  # g++: the metrics' host engine
@@ -477,8 +481,37 @@ def ln_calls(out_dtype):
     return calls
 
 
+def epilogue_calls(g, B, S, H, hd, Fd) -> dict:
+    """The FFN's GEMM pair with its tail in the cuBLASLt epilogues (linear1
+    with bias and ReLU, linear2 with bias and the residual) beside the eager
+    chain it replaces (F.linear, the ReLU, F.linear, the residual add): read
+    the normalised input, the residual and both weights once, write out;
+    two products.  Held to the float32 sum of linear2 over the eager
+    chain's hidden, which linear1's epilogue matches bit for bit where
+    cuBLASLt runs the same algorithm for both (`tests/test_torch_cuda.py`
+    holds each epilogue alone)."""
+    from layoutdm_tpu_torch.ops.gemm_epilogue import linear_relu, linear_residual
+
+    D = H * hd
+    h0, x = _randn(g, (B, S, D)), _randn(g, (B, S, D), 0.5)
+    w1, b1 = _randn(g, (Fd, D), D ** -0.5), _randn(g, (Fd,), 0.1)
+    w2, b2 = _randn(g, (D, Fd), Fd ** -0.5), _randn(g, (D,), 0.1)
+
+    def plain():
+        h = F.relu(F.linear(h0, w1, b1))
+        return F.linear(h.float(), w2.float(), b2.float()) + x.float()
+
+    M = B * S
+    return {"kernel": lambda: linear_residual(linear_relu(h0, w1, b1), w2, b2, x),
+            "plain": plain,
+            "library": lambda: x + F.linear(F.relu(F.linear(h0, w1, b1)), w2, b2),
+            "check": checks.residual_epilogue_errors,
+            **bound(3 * M * D * 2 + 2 * D * Fd * 2 + (Fd + D) * 2, 4 * M * D * Fd)}
+
+
 # every hand-written kernel: its name (the kernels line's), its source, the
-# JAX function it replaces, its calls and the shapes it is timed at
+# JAX function it replaces, its calls and the shapes it is timed at; last,
+# the FFN's GEMM pair through the cuBLASLt epilogues' shim
 KERNEL_TABLE = (
     ("attention_qkv", "layoutdm_tpu_torch/csrc/attention_qkv.cu",
      "layoutdm_tpu/ops/attention.py:216", k1_calls, TIMED_SHAPES + ZOO_SHAPES),
@@ -502,6 +535,10 @@ KERNEL_TABLE = (
     ("layer_norm_f32_out", "layoutdm_tpu_torch/csrc/adaln.cu",
      "none (flax nn.LayerNorm in layoutdm_tpu/models/nn.py, fused by XLA)",
      ln_calls(torch.float32), TIMED_SHAPES),
+    # no pallas_call: XLA fused the Block's ReLU and residual add into its Dense layers
+    ("ffn_gemm_epilogues", "layoutdm_tpu_torch/csrc/gemm_epilogue.cu",
+     "none (layoutdm_tpu/models/nn.py Block's FFN, fused by XLA)", epilogue_calls,
+     TIMED_SHAPES[:1]),
 )
 
 

@@ -1,8 +1,9 @@
 """The port's tolerances and checkers for its hand-written kernels (K1
 attention forward, K2 its backward, K3 LayerNorm-FFN-residual, K4 attention
 block, K5 padded-head attention, K6 sequence-major attention, the LayerNorm
-kernel in its adaLN and affine modes) against their plain versions, and the
-denoiser paths with the switches that select them.
+kernel in its adaLN and affine modes) and for the GEMM epilogues' shim
+against their plain versions, and the denoiser paths with the switches that
+select them.
 
 ``tests/test_torch_cuda.py`` holds each kernel to these at its edge cases,
 ``chip_smoke.py`` at the shapes it times, and ``compare_kernels.py`` both
@@ -60,6 +61,26 @@ ADALN_F32_TOL = 1e-5
 # float32 value that straddles a rounding boundary is rare.
 LN_F32_TOL = 1e-5
 LN_EQUAL_SHARE = 0.999
+# the GEMM epilogues (`ops.gemm_epilogue`, bfloat16).  ReLU + bias against
+# the eager F.relu(F.linear(...)): ReLU commutes with the output's rounding,
+# so the two agree bit for bit where cuBLASLt runs the same algorithm for
+# both, and else differ by the float32 sums' order: every output within one
+# bf16 step of the eager one.  The residual against the float32 sum (x Wᵀ +
+# b + r, before any rounding): the epilogue rounds it once, so every output
+# lies within half a bf16 step of it (2**-8 of the value) beyond the float32
+# sums' own error (EPILOGUE_SUM_TOL of the largest output), and at least
+# EPILOGUE_EQUAL_SHARE of the outputs are its rounding to nearest: sums
+# taken in another order straddle a rounding boundary rarely (H100: 99.89%
+# equal at K = 1,856, 99.97% at K = 464, 99.78% of one row of 1,856; the
+# excess over half a step at most 5.3e-6 at outputs up to 6.6).  The eager
+# add, which rounds the product first, agrees on ~69%.
+EPILOGUE_SUM_TOL = 2 ** -16
+EPILOGUE_EQUAL_SHARE = 0.99
+# a bf16 denoiser's logits with the epilogues against its logits with the
+# eager ReLU and adds, relative to the largest float32 logit: each of up to
+# 4 layers rounds its residual sums at other points, half a bf16 step (2**-8)
+# a layer (H100: 0.57-0.82% at 2 and 4 layers, three seeds each)
+EPILOGUE_DENOISER_REL_TOL = 2 ** -6
 
 # the denoiser paths: the `build_model` switches each turns on, and the
 # kernels each launches once a layer and forward
@@ -159,3 +180,29 @@ def ln_errors(got, x, w, b, out_dtype) -> tuple:
     if out_dtype == torch.bfloat16:
         ok = ok and (got == ref.to(out_dtype)).float().mean().item() >= LN_EQUAL_SHARE
     return diff.max().item(), ok
+
+
+def relu_epilogue_errors(got, want) -> tuple:
+    """(max abs error, share of bit-equal outputs, whether every output is
+    within one bf16 step) of the ReLU + bias epilogue against the eager
+    pair's output ``want``."""
+    if not _same_layout(got, want):
+        return float("inf"), 0.0, False
+    ok = got == want
+    equal = ok.float().mean().item()
+    for k in (-1, 1):
+        ok |= got == bf16_step(want, k)
+    return (got.float() - want.float()).abs().max().item(), equal, bool(ok.all())
+
+
+def residual_epilogue_errors(got, want) -> tuple:
+    """(max abs error, share of outputs equal to ``want``'s rounding, whether
+    both are within the residual rule above) of the residual epilogue
+    against the float32 sum ``want``."""
+    if not (got.shape == want.shape and got.dtype == torch.bfloat16
+            and want.dtype == torch.float32):
+        return float("inf"), 0.0, False
+    diff = (got.float() - want).abs()
+    tol = 2 ** -8 * want.abs() + EPILOGUE_SUM_TOL * want.abs().max().item()
+    equal = (got == want.to(torch.bfloat16)).float().mean().item()
+    return diff.max().item(), equal, bool((diff <= tol).all()) and equal >= EPILOGUE_EQUAL_SHARE

@@ -11,7 +11,12 @@ modulation and the cast), and through `affine_norm` each affine
 LayerNorm (each Block's ``norm2``, the plain ``norm1`` of a Block without
 timestep, `DecoderBlock`'s three, the heads' norms: float32 statistics
 and affine, the output in the compute dtype, or float32 before a float32
-head).  Training keeps the plain path and its numerics.  ``Block``
+head).  There, in bfloat16, a Block's ReLU and its residual adds run in the
+epilogues of the GEMMs before them (`takes_gemm_epilogue`,
+`ops.gemm_epilogue`): linear1 with bias and ReLU, linear2 and the K1
+path's out projection with bias and the residual, each sum rounded once
+(the eager add rounds the product first).  Training keeps the plain path
+and its numerics.  ``Block``
 keeps the reference's trunk-replacing norm1 quirk: x = norm1(x), then
 x + attn(x).  Attention runs at the native head width (58 at the
 flagship): the TPU package's head-padding to 64 lanes and lane-padded
@@ -95,6 +100,11 @@ from layoutdm_tpu_torch.ops.ffn import (
     can_use_fused_ffn,
     fused_ln_ffn_residual,
 )
+from layoutdm_tpu_torch.ops.gemm_epilogue import (
+    can_use_gemm_epilogue,
+    linear_relu,
+    linear_residual,
+)
 from layoutdm_tpu_torch.ops.samplers import RowShard, draw_rows
 from layoutdm_tpu_torch.utils.profiling import span
 
@@ -152,6 +162,32 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     if split is not None:
         return split(x.to(dtype), layer.weight.to(dtype), bias)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def takes_gemm_epilogue(device: torch.device, dtype, dropout: Optional[Dropout],
+                        *layers: nn.Linear, activation: Optional[str] = None) -> bool:
+    """Whether products through ``layers`` run their tail (the bias, the
+    ``activation`` if any, a residual add) in the GEMM's cuBLASLt epilogue
+    (`ops.gemm_epilogue`): on a CUDA device, without autograd or dropout, in
+    bfloat16, with ReLU for an activation, through layers with a bias and no
+    tensor-parallel split at widths the shim takes.  Anything else keeps the
+    eager calls."""
+    return (device.type == "cuda" and dropout is None and not torch.is_grad_enabled()
+            and activation in (None, "relu")
+            and all(layer.bias is not None and getattr(layer, "tensor_parallel", None) is None
+                    and can_use_gemm_epilogue(layer.weight.shape[1], layer.weight.shape[0], dtype)
+                    for layer in layers))
+
+
+def _linear_epilogue(x: torch.Tensor, layer: nn.Linear, dtype,
+                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`_linear` with its tail in the GEMM's epilogue (`takes_gemm_epilogue`
+    admits it): relu(x Wᵀ + b), or with ``residual`` residual + x Wᵀ + b,
+    the sum rounded once."""
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    if residual is None:
+        return linear_relu(x, w, b)
+    return linear_residual(x, w, b, residual)
 
 
 def affine_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -296,8 +332,11 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, dropout: Optional[Dropout] = None,
                 fold_residual: bool = False, mask: Optional[torch.Tensor] = None,
-                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """attn(x); with ``fold_residual``, x + attn(x) through K4.
+                key_padding_mask: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """attn(x); with ``fold_residual``, x + attn(x) through K4; with
+        ``residual``, residual + attn(x), on the K1 path in the out
+        projection's GEMM epilogue where `takes_gemm_epilogue` admits it.
         ``mask``: (S, S) additive; ``key_padding_mask``: (B, S), True at
         keys no query may attend."""
         if fold_residual:
@@ -306,19 +345,24 @@ class SelfAttention(nn.Module):
                 self.out.weight, self.out.bias, self.nhead,
             )
         attn_dropout = dropout is not None and self.dropout > 0.0
-        if attn_dropout or mask is not None or key_padding_mask is not None:
-            return self._plain(x, mask, key_padding_mask, dropout if attn_dropout else None)
         inference = dropout is None and not torch.is_grad_enabled()
-        if inference and self.attn_v2 and can_use_blockdiag(self.head_dim, x.shape[1]):
-            return self._blockdiag(x)
-        if inference and self.smajor:
-            return self._smajor(x)
-        qkv = _linear(x, self.qkv, self.dtype)
-        if torch.is_grad_enabled() and qkv.requires_grad:
-            o = fused_attention_qkv_diff(qkv, self.nhead)
+        if attn_dropout or mask is not None or key_padding_mask is not None:
+            out = self._plain(x, mask, key_padding_mask, dropout if attn_dropout else None)
+        elif inference and self.attn_v2 and can_use_blockdiag(self.head_dim, x.shape[1]):
+            out = self._blockdiag(x)
+        elif inference and self.smajor:
+            out = self._smajor(x)
         else:
-            o = fused_attention_qkv(qkv, self.nhead)
-        return _linear(o, self.out, self.dtype)
+            qkv = _linear(x, self.qkv, self.dtype)
+            if torch.is_grad_enabled() and qkv.requires_grad:
+                o = fused_attention_qkv_diff(qkv, self.nhead)
+            else:
+                o = fused_attention_qkv(qkv, self.nhead)
+            if residual is not None and takes_gemm_epilogue(o.device, self.dtype, dropout,
+                                                            self.out):
+                return _linear_epilogue(o, self.out, self.dtype, residual)
+            out = _linear(o, self.out, self.dtype)
+        return out if residual is None else residual + out
 
     def _plain(self, x, mask, key_padding_mask, dropout) -> torch.Tensor:
         """The JAX plain path (`nn.py:451-476`): scores in the compute
@@ -425,6 +469,8 @@ class Block(nn.Module):
                 x = x + self.attn.decode_step(x, cache, layer)
             elif self.fused_block and inference and not masked:
                 x = self.attn(x, fold_residual=True)
+            elif inference:
+                x = self.attn(x, mask=mask, key_padding_mask=key_padding_mask, residual=x)
             else:
                 x = x + drop(self.attn(x, dropout, mask=mask, key_padding_mask=key_padding_mask),
                              self.dropout)
@@ -437,6 +483,11 @@ class Block(nn.Module):
                     self.activation_name, LN_EPS,
                 )
             h = affine_norm(self.norm2, x, self.dtype)
+            if cache is None and takes_gemm_epilogue(h.device, self.dtype, dropout, self.linear1,
+                                                     self.linear2,
+                                                     activation=self.activation_name):
+                h = _linear_epilogue(h, self.linear1, self.dtype)
+                return _linear_epilogue(h, self.linear2, self.dtype, residual=x)
             h = self.activation(_linear(h, self.linear1, self.dtype))
             # the hidden's own columns where `parallel.tp` splits the FFN
             h = _linear(drop(h, self.dropout, getattr(self.linear1, "tensor_parallel", None)),

@@ -1,11 +1,11 @@
 """The port on a CUDA card, and its one check there of each hand-written
 kernel (K1 attention forward, K2 its backward, K3 LayerNorm-FFN-residual,
 K4 attention block, K5 padded-head attention, K6 sequence-major attention,
-the LayerNorm kernel in its adaLN norm1 and affine modes) against its
-plain version: at the tile edges, at the sampling cells' shapes and at
-every family's widths.  Then the denoiser on every path, a train step and
-a chain's launches, the per-row noise and the FIDNet feature extractor on
-the card against the CPU.  Every test here is marked ``cuda`` and skips
+the LayerNorm kernel in its adaLN norm1 and affine modes) and of the GEMM
+epilogues' cuBLASLt shim against its plain version: at the tile edges, at
+the sampling cells' shapes and at every family's widths.  Then the
+denoiser on every path, a train step and a chain's launches, the per-row
+noise and the FIDNet feature extractor on the card against the CPU.  Every test here is marked ``cuda`` and skips
 without a card.  The tolerances and checkers are ``kernel_checks.py``'s.
 
 This file imports no jax and nothing of the JAX package (as
@@ -21,6 +21,7 @@ import torch
 from kernel_checks import (
     DENOISER_PATHS,
     DENOISER_TOL,
+    EPILOGUE_DENOISER_REL_TOL,
     F32_TOL,
     SHARP,
     adaln_errors,
@@ -30,11 +31,14 @@ from kernel_checks import (
     fused_errors,
     ln_errors,
     path_switches,
+    relu_epilogue_errors,
+    residual_epilogue_errors,
 )
 from layoutdm_tpu_torch.bench.headline import flagship_config
 from layoutdm_tpu_torch.configs import build_train_config
 from layoutdm_tpu_torch.factory import build_model
-from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
+from layoutdm_tpu_torch.models import nn as nn_mod
+from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn, gemm_epilogue
 from layoutdm_tpu_torch.ops.attention import (
     attention_qkv_bwd_reference,
     attention_qkv_reference,
@@ -127,12 +131,13 @@ def _takes_long_body(S, hd, dtype):
 
 def _launches() -> dict:
     """The kernel wrappers' launch counters (``long``: K1 and K6 calls
-    that took the long bf16 body)."""
+    that took the long bf16 body; ``epilogue``: the GEMM epilogues' shim
+    calls)."""
     return {"K1": attention.LAUNCHES, "long": attention.LAUNCHES_LONG,
             "K2": attention.LAUNCHES_BWD, "K3": ffn.LAUNCHES_FFN,
             "K4": attention.LAUNCHES_BLOCK, "K5": attention_blockdiag.LAUNCHES_BLOCKDIAG,
             "K6": attention.LAUNCHES_SMAJOR, "adaLN": adaln.LAUNCHES_ADALN,
-            "LN": adaln.LAUNCHES_LN}
+            "LN": adaln.LAUNCHES_LN, "epilogue": gemm_epilogue.LAUNCHES_EPILOGUE}
 
 
 def _since(before: dict) -> dict:
@@ -781,3 +786,125 @@ def test_fidnet_on_card_matches_cpu(cuda):
     for g, w in zip(heads, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=F32_TOL)
+
+
+# the GEMM epilogues' calls (M, K, N, bias): the sampling cells' (128,000
+# tokens a step through linear1, linear2 and the out projection), one row,
+# rows that fill no tile, a zero bias
+EPILOGUE_CASES = [(128_000, K, N, "random") for K, N in ((464, 1856), (1856, 464), (464, 464))] + [
+    (M, K, N, "random") for M in (1, 1000 * 5 + 3) for K, N in ((464, 1856), (1856, 464))
+] + [(1000 * 5 + 3, 464, 464, "zero")]
+
+
+@pytest.mark.parametrize("epilogue", ["relu", "residual"])
+@pytest.mark.parametrize("M,K,N,bias", EPILOGUE_CASES, ids=_id)
+def test_gemm_epilogue_matches_its_eager_pair(cuda, M, K, N, bias, epilogue):
+    """ReLU + bias against the eager F.linear + F.relu, within a bf16 step;
+    the residual against the float32 sum, rounded once; one shim call, and
+    no input written (the residual is the GEMM's C, the output a new
+    tensor)."""
+    g = torch.Generator(cuda).manual_seed(M + K + N)
+    randn = lambda *shape, scale=1.0: (  # noqa: E731
+        torch.randn(shape, generator=g, device=cuda) * scale).to(torch.bfloat16)
+    x, w, r = randn(M, K), randn(N, K, scale=K ** -0.5), randn(M, N, scale=0.5)
+    b = randn(N, scale=0.1) if bias == "random" else torch.zeros(N, device=cuda,
+                                                                   dtype=torch.bfloat16)
+    inputs = [t.clone() for t in (x, w, b, r)]
+    before = _launches()
+    if epilogue == "relu":
+        got = gemm_epilogue.linear_relu(x, w, b)
+        check = relu_epilogue_errors, got, torch.nn.functional.relu(
+            torch.nn.functional.linear(x, w, b))
+    else:
+        got = gemm_epilogue.linear_residual(x, w, b, r)
+        check = residual_epilogue_errors, got, (
+            torch.nn.functional.linear(x.float(), w.float(), b.float()) + r.float())
+    assert _since(before) == {"epilogue": 1}
+    assert all(torch.equal(a, t) for a, t in zip(inputs, (x, w, b, r)))
+    assert got.data_ptr() not in {t.data_ptr() for t in (x, w, b, r)}
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    _assert_within(*check)
+
+
+def test_gemm_epilogue_rejects_what_it_does_not_take(cuda):
+    bf16 = torch.bfloat16
+    x, w, b = (torch.zeros(s, device=cuda, dtype=bf16) for s in ((4, 16), (8, 16), (8,)))
+    with pytest.raises(TypeError):
+        gemm_epilogue.linear_relu(x.float(), w.float(), b.float())
+    with pytest.raises(ValueError):  # K not a multiple of 8
+        gemm_epilogue.linear_relu(x[:, :12].contiguous(), w[:, :12].contiguous(), b)
+    with pytest.raises(ValueError):
+        gemm_epilogue.linear_relu(torch.zeros(16, 4, device=cuda, dtype=bf16).t(), w, b)
+    with pytest.raises(ValueError):
+        gemm_epilogue.linear_residual(x, w, b, torch.zeros(4, 4, device=cuda, dtype=bf16))
+    with pytest.raises(ValueError):
+        gemm_epilogue.linear_relu(x, w, b.cpu())
+
+
+def test_gemm_epilogue_shares_torchs_cublaslt(cuda):
+    """The shim calls the libcublasLt that torch loaded: the process maps
+    one copy."""
+    x = torch.ones(16, 16, device=cuda, dtype=torch.bfloat16)
+    gemm_epilogue.linear_relu(x, x, x[0])
+    torch.cuda.synchronize()
+    assert len(gemm_epilogue.loaded_cublaslt()) == 1, gemm_epilogue.loaded_cublaslt()
+
+
+@pytest.mark.parametrize("width", ["small", "flagship"])
+def test_denoiser_epilogues_match_the_eager_forward(cuda, width, monkeypatch):
+    """A bf16 denoiser on the default path takes the epilogues in every
+    layer (3 shim calls a layer), and its logits are held to the same
+    model's forward with the epilogue gate off (the eager ReLU and adds):
+    within EPILOGUE_DENOISER_REL_TOL of the largest logit of the float32
+    forward of the same weights, and no farther from that forward on average
+    (each residual sum rounded once, not twice: H100, the mean error falls
+    3-6%)."""
+    # the small width at d_model 232 and FFN 232 after the 29/32 shrink: whole
+    # bf16 vectors, as the shim and the LayerNorm kernel take them
+    wide = ("backbone.d_model=256", "backbone.nhead=4", "backbone.dim_feedforward=256")
+    over = wide if width == "small" else ()
+    cfg = _config(width, *over, "model.dtype=bfloat16")
+    model = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(5))
+    f32 = build_model(_config(width, *over, "model.dtype=float32"), device=cuda,
+                      generator=torch.Generator().manual_seed(6))
+    f32.net.load_state_dict(model.net.state_dict())
+    layers, T = cfg.backbone.num_layers, model.q.num_timesteps
+    rs = np.random.RandomState(0)
+    ids = torch.as_tensor(rs.randint(0, model.num_classes, (8, model.seq_len))).to(cuda)
+    t = torch.as_tensor(rs.randint(0, T, (8,))).to(cuda)
+    with torch.inference_mode():
+        want32 = f32.net(ids, t)
+        before = _launches()
+        got = model.net(ids, t)
+        assert _since(before) == {"K1": layers, "adaLN": layers, "LN": layers + 1,
+                                  "epilogue": 3 * layers}
+        monkeypatch.setattr(nn_mod, "takes_gemm_epilogue", lambda *a, **k: False)
+        before = _launches()
+        eager = model.net(ids, t)
+        assert _since(before) == {"K1": layers, "adaLN": layers, "LN": layers + 1}
+    gap = (got - eager).abs().max().item()
+    tol = EPILOGUE_DENOISER_REL_TOL * want32.abs().max().item()
+    got_mean, eager_mean = ((v - want32).abs().mean().item() for v in (got, eager))
+    assert gap <= tol and got_mean <= eager_mean, (gap, tol, got_mean, eager_mean)
+
+
+def test_epilogue_launches_on_a_chain_and_none_in_training(cuda):
+    """One bf16 chain of the flagship (4 layers, T=100) calls the shim 1,200
+    times (3 a layer and step); a train step under autograd none."""
+    from layoutdm_tpu_torch.train.step import init_train_state, make_optimizer, train_step
+
+    cfg = _config("flagship")
+    model = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(3))
+    before = gemm_epilogue.LAUNCHES_EPILOGUE
+    model.sample_ids(torch.Generator(cuda).manual_seed(4), 2)
+    torch.cuda.synchronize()
+    assert gemm_epilogue.LAUNCHES_EPILOGUE - before == 3 * 4 * 100 == 1200
+    E = cfg.dataset.max_seq_length
+    rs = np.random.RandomState(4)
+    batch = {"label": rs.randint(0, 5, (4, E)), "bbox": rs.rand(4, E, 4).astype(np.float32),
+             "mask": np.arange(E)[None] < rs.randint(1, E + 1, (4, 1))}
+    state = init_train_state(model, make_optimizer(model.net), 1.0)
+    before = _launches()
+    train_step(state, model.preprocess(batch), torch.Generator(cuda).manual_seed(5))
+    launches = _since(before)
+    assert launches.get("K2") == 4 and "epilogue" not in launches, launches
