@@ -16,7 +16,11 @@ cross-attention keys and values projected once from the memory
 each step (``use_cache=False``).  The partial task under the alphabetical
 order re-inserts the kept elements on the host (`_reinsert_partial`).  The
 encoder's mask-free inference reaches the kernels; the decoder's masked
-self-attention and its cross-attention take the plain path.
+self-attention and its cross-attention take the plain path.  The encoder
+pass runs in the span ``layoutdm.encode`` (with the cross keys and values
+on the cached path), each generated token in ``layoutdm.decode_step``
+(the decoder, the legality mask, the draw and the forcing), and
+``DECODE_STEPS`` counts the cached steps.
 
 Random draws go through `models.base.Draws`: the task's (``ratio`` and
 ``scores`` for the random task), the target permutation's (``perm``: its
@@ -44,6 +48,10 @@ from layoutdm_tpu_torch.models.nn import (
 )
 from layoutdm_tpu_torch.tokenizer.sequence import LayoutSequenceTokenizer
 from layoutdm_tpu_torch.utils.device import require_device
+from layoutdm_tpu_torch.utils.profiling import span
+
+# cached decode steps run (one a generated token of a ``use_cache`` decode)
+DECODE_STEPS = 0
 
 
 class BART:
@@ -203,14 +211,18 @@ class BART:
                 pred = torch.where(mask_user[:, i + 1], seq_user[:, i + 1], pred)
             return pred
 
-        memory = self.net(enc_in, None)  # the encoder runs once
+        global DECODE_STEPS
+        with span("layoutdm.encode"):
+            memory = self.net(enc_in, None)  # the encoder runs once
+            cache = self.net.new_cache(B, memory) if use_cache else None
         preds = []
         if use_cache:
-            cache = self.net.new_cache(B, memory)
             tok = torch.full((B, 1), self.bos_id, dtype=torch.int64, device=dev)
             cat_buf = torch.zeros((B,), dtype=torch.int64, device=dev)
             for i in range(L):
-                pred = constrain(self.net.decode_step(tok, cache)[:, 0], cat_buf, i)
+                with span("layoutdm.decode_step"):
+                    pred = constrain(self.net.decode_step(tok, cache)[:, 0], cat_buf, i)
+                DECODE_STEPS += 1
                 if i % C == 0:  # the latest category, for the order rule
                     cat_buf = pred
                 preds.append(pred)
@@ -219,8 +231,9 @@ class BART:
             # a fixed-length buffer [BOS, ...]; step i fills position i + 1
             buf = torch.full((B, L + 1), self.bos_id, dtype=torch.int64, device=dev)
             for i in range(L):
-                logits = self.net(None, buf, memory=memory)
-                pred = constrain(logits[:, i], buf[:, max(i - (C - 1), 0)], i)
+                with span("layoutdm.decode_step"):
+                    logits = self.net(None, buf, memory=memory)
+                    pred = constrain(logits[:, i], buf[:, max(i - (C - 1), 0)], i)
                 preds.append(pred)
                 buf[:, i + 1] = pred
         seq = torch.stack(preds, dim=1)

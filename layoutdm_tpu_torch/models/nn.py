@@ -727,7 +727,10 @@ class DecoderBlock(nn.Module):
     ``TransformerDecoderLayer(norm_first=True)``): norm1, causal
     self-attention, norm2, cross-attention, norm3, FFN, each with its
     residual.  The FFN runs K3 only on a full-sequence inference call
-    under ``fused_ffn``; the cached decode keeps the unfused FFN."""
+    under ``fused_ffn``; the cached decode keeps the unfused FFN.  Each
+    sublayer with its norm and residual runs in a span:
+    ``layoutdm.dec_self_attention`` (the cache write too),
+    ``layoutdm.cross_attention``, ``layoutdm.dec_ffn``."""
 
     def __init__(self, cfg: BackboneConfig, dtype=torch.float32, fused_ffn: bool = False):
         super().__init__()
@@ -751,25 +754,28 @@ class DecoderBlock(nn.Module):
         token against ``layer``'s self-attention caches and its prefilled
         cross keys and values (``memory`` is then unused)."""
         drop = dropout or (lambda h, rate, cols=None: h)
-        h = affine_norm(self.norm1, x, self.dtype)
-        if cache is not None:
-            h = self.self_attn.decode_step(h, cache, layer)
-        else:
-            h = self.self_attn(h, dropout, mask=mask)
-        x = x + drop(h, self.dropout)
-        kv = None if cache is None else (cache.cross_keys[layer], cache.cross_values[layer])
-        x = x + drop(self.cross_attn(affine_norm(self.norm2, x, self.dtype), memory, kv),
-                     self.dropout)
-        if (self.fused_ffn and cache is None and dropout is None
-                and not torch.is_grad_enabled()):
-            return fused_ln_ffn_residual(
-                x, self.norm3.weight, self.norm3.bias, self.linear1.weight,
-                self.linear1.bias, self.linear2.weight, self.linear2.bias,
-                self.activation_name, LN_EPS,
-            )
-        h = self.activation(_linear(affine_norm(self.norm3, x, self.dtype), self.linear1,
-                                    self.dtype))
-        return x + drop(_linear(h, self.linear2, self.dtype), self.dropout)
+        with span("layoutdm.dec_self_attention"):
+            h = affine_norm(self.norm1, x, self.dtype)
+            if cache is not None:
+                h = self.self_attn.decode_step(h, cache, layer)
+            else:
+                h = self.self_attn(h, dropout, mask=mask)
+            x = x + drop(h, self.dropout)
+        with span("layoutdm.cross_attention"):
+            kv = None if cache is None else (cache.cross_keys[layer], cache.cross_values[layer])
+            x = x + drop(self.cross_attn(affine_norm(self.norm2, x, self.dtype), memory, kv),
+                         self.dropout)
+        with span("layoutdm.dec_ffn"):
+            if (self.fused_ffn and cache is None and dropout is None
+                    and not torch.is_grad_enabled()):
+                return fused_ln_ffn_residual(
+                    x, self.norm3.weight, self.norm3.bias, self.linear1.weight,
+                    self.linear1.bias, self.linear2.weight, self.linear2.bias,
+                    self.activation_name, LN_EPS,
+                )
+            h = self.activation(_linear(affine_norm(self.norm3, x, self.dtype), self.linear1,
+                                        self.dtype))
+            return x + drop(_linear(h, self.linear2, self.dtype), self.dropout)
 
 
 class CategoricalEncDecTransformer(nn.Module):

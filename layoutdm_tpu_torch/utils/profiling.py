@@ -13,6 +13,11 @@ nothing is entered, nothing is kept.
 | ``layoutdm.denoise`` | `make_predict_start`: the denoiser call alone | denoiser call |
 | ``layoutdm.attention`` | `models.nn.Block`: the attention sublayer and its residual | layer |
 | ``layoutdm.ffn`` | `models.nn.Block`: ``norm2`` through the FFN's residual | layer |
+| ``layoutdm.encode`` | `models.bart.BART.sample_ids`: the encoder pass (and, decoding through the cache, the cross keys and values projected from its memory) | chain |
+| ``layoutdm.decode_step`` | `BART.sample_ids`: one generated token, decoder call to the forced draw | generated token |
+| ``layoutdm.dec_self_attention`` | `models.nn.DecoderBlock`: ``norm1``, the causal self-attention (the cache write and the prefix) and its residual | decoder layer |
+| ``layoutdm.cross_attention`` | `DecoderBlock`: ``norm2``, the cross-attention and its residual | decoder layer |
+| ``layoutdm.dec_ffn`` | `DecoderBlock`: ``norm3`` through the FFN's residual | decoder layer |
 | ``layoutdm.train_step`` | `train.step`: a whole train step | train step |
 | ``layoutdm.forward`` | `train.step`: the losses (timesteps, corruption, denoiser, loss) | train step |
 | ``layoutdm.backward`` | `train.step._update`: the summed loss, ``zero_grad``, ``backward`` | train step |

@@ -4,8 +4,8 @@ K4 attention block, K5 padded-head attention, K6 sequence-major attention,
 the LayerNorm kernel in its adaLN norm1 and affine modes) and of the GEMM
 epilogues' cuBLASLt shim against its plain version: at the tile edges, at
 the sampling cells' shapes and at every family's widths.  Then the
-denoiser on every path, a train step and a chain's launches, the per-row
-noise and the FIDNet feature extractor on the card against the CPU.  Every test here is marked ``cuda`` and skips
+denoiser on every path, a train step and a chain's launches, BART's cached
+decode at its published widths, the per-row noise and the FIDNet feature extractor on the card against the CPU.  Every test here is marked ``cuda`` and skips
 without a card.  The tolerances and checkers are ``kernel_checks.py``'s.
 
 This file imports no jax and nothing of the JAX package (as
@@ -908,3 +908,29 @@ def test_epilogue_launches_on_a_chain_and_none_in_training(cuda):
     train_step(state, model.preprocess(batch), torch.Generator(cuda).manual_seed(5))
     launches = _since(before)
     assert launches.get("K2") == 4 and "epilogue" not in launches, launches
+
+
+def test_bart_cached_decode_on_card_matches_cpu(cuda):
+    """BART at Rico25's published widths (d_model 336, 8 heads of 42, FFN
+    1,344, 4 + 4 layers, 126 positions, vocabulary 61) in float32 on the
+    card (the encoder on K1, the LayerNorm kernel in the decoder) against
+    the same weights on the CPU, at a small batch: each cached decode
+    step's logits, the encoder's memory through the cross keys and values
+    included, within DENOISER_TOL."""
+    cfg = build_train_config("bart", "rico25", ["data.bbox_quantization=linear",
+                                                "model.dtype=float32"])
+    cpu, gpu = (build_model(cfg, device=d, generator=torch.Generator().manual_seed(7))
+                for d in ("cpu", cuda))
+    assert (gpu.backbone_cfg.d_model, gpu.backbone_cfg.dim_feedforward, gpu.num_classes,
+            gpu.seq_len) == (336, 1344, 61, 126)
+    rs = np.random.RandomState(1)
+    enc, dec = (torch.as_tensor(rs.randint(0, cpu.num_classes, (4, cpu.seq_len)))
+                for _ in range(2))
+    dec[:, 0] = cpu.bos_id
+    logits = []
+    with torch.inference_mode():
+        for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+            cache = model.net.new_cache(4, model.net(enc.to(dev), None))
+            logits.append(torch.cat([model.net.decode_step(dec[:, i:i + 1].to(dev), cache)
+                                     for i in range(cpu.seq_len)], 1).cpu())
+    torch.testing.assert_close(logits[1], logits[0], rtol=0, atol=DENOISER_TOL)

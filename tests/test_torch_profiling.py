@@ -2,9 +2,9 @@
 `sample_cli` run with ``trace_dir`` writes a Chrome trace that holds the
 program's spans, and the same layouts, byte for byte, as a run without it
 (a relation-guided chain included: the trace leaves its grad mode as it
-was); the spans of the reverse chain and of the train step nest as the
-module's table says, change no number, and enter nothing while no
-profiler records."""
+was); the spans of the reverse chain, of BART's decode and of the train
+step nest as the module's table says, change no number, and enter nothing
+while no profiler records."""
 
 import json
 import os
@@ -196,3 +196,40 @@ def test_train_step_spans_nest_and_change_no_parameter(cfg, tokens, tmp_path, ho
     (denoise,) = inside(spans, "layoutdm.denoise", forward)
     assert len(inside(spans, "layoutdm.attention", denoise)) == LAYERS
     assert len(inside(spans, "layoutdm.ffn", denoise)) == LAYERS
+
+
+@pytest.mark.parametrize("use_cache", [True, False])
+def test_bart_decode_spans_nest_and_change_no_token(tmp_path, use_cache):
+    """BART's ``c`` decode: the encoder pass once, a decode step a
+    generated token holding each decoder layer's three sublayers, every
+    span inside one of them; the cached steps counted by ``DECODE_STEPS``."""
+    from layoutdm_tpu_torch.models import bart as bart_mod
+    from layoutdm_tpu_torch.tasks import get_cond, to_sampler_cond
+
+    cfg = build_train_config("bart", "synthetic", [
+        "dataset.max_seq_length=4", "data.bbox_quantization=linear", "backbone.d_model=64",
+        "backbone.nhead=2", "backbone.dim_feedforward=64", f"backbone.num_layers={LAYERS}"])
+    model = tiny_model(cfg)
+    batch = {"label": torch.tensor([[1, 2, 0, 0], [3, 0, 0, 0]]), "bbox": torch.rand(2, 4, 4),
+             "mask": torch.tensor([[True, True, False, False], [True, False, False, False]])}
+    sc = to_sampler_cond(get_cond(batch, model.tokenizer, "c", model_type="bart"),
+                         model.tokenizer, cfg.sampling)
+
+    def decode():
+        return model.sample_ids(torch.Generator().manual_seed(2), 2, cond=sc,
+                                use_cache=use_cache)
+
+    plain = decode()
+    before = bart_mod.DECODE_STEPS
+    ids, spans = traced(decode, tmp_path / "t.json")
+    assert torch.equal(ids, plain)
+    G = model.gen_len
+    assert bart_mod.DECODE_STEPS - before == (G if use_cache else 0)
+    assert len([s for s in spans if s[0] == "layoutdm.encode"]) == 1
+    steps = [s for s in spans if s[0] == "layoutdm.decode_step"]
+    assert len(steps) == G
+    for step in steps:
+        for name in ("dec_self_attention", "cross_attention", "dec_ffn"):
+            assert len(inside(spans, f"layoutdm.{name}", step)) == LAYERS
+    outer = steps + [s for s in spans if s[0] == "layoutdm.encode"]
+    assert all(any(o[1] <= s[1] and s[2] <= o[2] for o in outer) for s in spans)
