@@ -18,7 +18,7 @@ here each kernel is held to it (by ``kernel_checks.py``) at the shapes it
 is timed at, and the phases below check launches, outputs and end-to-end
 results:
 
-1. device       card name, power limit, nvcc version, the seven kernels
+1. device       card name, power limit, nvcc version, the eight kernels
                 and the GEMM epilogues' shim built in parallel, their
                 build times and ptxas reports;
 1a. k1_name     one K1 call at each timed shape is one launch of one
@@ -39,7 +39,9 @@ results:
                 within its tolerance of its plain version's, its max abs
                 difference reported; and the FFN's GEMM pair through the
                 cuBLASLt epilogues' shim beside the eager chain it replaces
-                (B=1024, S=125);
+                (B=1024, S=125); the cached decode's attention at BART's
+                cell (B=4,096, 8 heads of 42: self-attention at 64
+                positions, cross-attention over 126) beside SDPA;
 5. train        (a) bfloat16 train steps at B=1024, timed by the bench's
                 `headline.train_rates` (a warm-up run and 3 timed runs of
                 10 steps): samples/s (median and spread), peak memory,
@@ -189,6 +191,15 @@ TIMED_SHAPES = (("b1024_s125_bf16", 1024, 125, FLAG_H, FLAG_HD, FLAG_F),
 ZOO_SHAPES = (("bart_b256_s126_d336", 256, 126, 8, 42, 1344),
               ("aggregated_b256_s25_d432", 256, 25, 8, 54, 1728))
 MASKGIT_FFN_SHAPE = ("maskgit_b256_s125_d512_f32_weights", 256, 125, 8, 64, 2048, torch.float32)
+# the cached decode's attention at BART's cell (B = 4,096, 8 heads of 42):
+# (name, batch, positions, heads, head width, call), self-attention at a
+# chain's mean position (64 of its caches' 126) and cross-attention over
+# the encoder's 126 positions; and LayoutTransformer's self-attention (8
+# heads of 64, 128 bytes: the kernel's rotated start offsets) at the same
+# batch and position
+DECODE_SHAPES = (("bart_self_b4096_n64", 4096, 64, 8, 42, "self"),
+                 ("bart_cross_b4096_m126", 4096, 126, 8, 42, "cross"),
+                 ("layouttransformer_self_b4096_n64", 4096, 64, 8, 64, "self"))
 
 
 def emit(obj) -> None:
@@ -230,7 +241,14 @@ def flagship_config(dtype: str):
 
 def phase_device() -> dict:
     from layoutdm_tpu_torch import native
-    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn, gemm_epilogue
+    from layoutdm_tpu_torch.ops import (
+        adaln,
+        attention,
+        attention_blockdiag,
+        decode_attention,
+        ffn,
+        gemm_epilogue,
+    )
     from layoutdm_tpu_torch.ops.cuda_build import find_nvcc
 
     smi = subprocess.run(
@@ -248,6 +266,7 @@ def phase_device() -> dict:
             "attention_blockdiag": attention_blockdiag.kernel_library,
             "attention_qkv_smajor": attention.smajor_kernel_library,
             "ada_layer_norm": adaln.kernel_library,
+            "decode_attention": decode_attention.kernel_library,
             "gemm_epilogue": gemm_epilogue.kernel_library}
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         futures = {name: pool.submit(build) for name, build in libs.items()}
@@ -509,8 +528,35 @@ def epilogue_calls(g, B, S, H, hd, Fd) -> dict:
             **bound(3 * M * D * 2 + 2 * D * Fd * 2 + (Fd + D) * 2, 4 * M * D * Fd)}
 
 
+def decode_attention_calls(g, B, n, H, hd, call) -> dict:
+    """The cached decode's attention beside SDPA on the same views (timed
+    only, it writes no cache): read q and the keys and values of n
+    positions (the self call: n - 1 cached, this step's rows from the
+    projection, written into the caches; the cross call: in place in the
+    packed projection), write the output; q·kᵀ and p·v."""
+    from layoutdm_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_reference,
+    )
+
+    D = H * hd
+    q, k, v = _randn(g, (B, 1, 3, H, hd)).unbind(2)
+    if call == "self":
+        keys, values = (_randn(g, (B, 126, H, hd)) for _ in range(2))
+        new, rows = (k, v), 2 * B * (n - 1) + 4 * B  # cached rows; new rows read, written
+    else:
+        keys, values = _randn(g, (B, n, 2, H, hd)).unbind(2)
+        new, rows = None, 2 * B * n
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, keys[:, :n], values[:, :n]))
+    return {"kernel": lambda: decode_attention(q, keys, values, n, new),
+            "plain": lambda: decode_attention_reference(q, keys, values, n, new),
+            "library": lambda: F.scaled_dot_product_attention(qs, ks, vs),
+            "check": checks.attention_errors,
+            **bound((rows + 2 * B) * D * 2, 4 * B * n * D)}
+
+
 # every hand-written kernel: its name (the kernels line's), its source, the
-# JAX function it replaces, its calls and the shapes it is timed at; last,
+# JAX function it replaces, its calls and the shapes it is timed at; then
 # the FFN's GEMM pair through the cuBLASLt epilogues' shim
 KERNEL_TABLE = (
     ("attention_qkv", "layoutdm_tpu_torch/csrc/attention_qkv.cu",
@@ -539,6 +585,10 @@ KERNEL_TABLE = (
     ("ffn_gemm_epilogues", "layoutdm_tpu_torch/csrc/gemm_epilogue.cu",
      "none (layoutdm_tpu/models/nn.py Block's FFN, fused by XLA)", epilogue_calls,
      TIMED_SHAPES[:1]),
+    # no pallas_call: XLA compiled the JAX cached decode's einsums
+    ("decode_attention", "layoutdm_tpu_torch/csrc/decode_attention.cu",
+     "none (layoutdm_tpu/models/nn.py SelfAttention._decode_step, CrossAttention; XLA)",
+     decode_attention_calls, DECODE_SHAPES),
 )
 
 
@@ -574,22 +624,41 @@ def phase_kernels() -> dict:
 
 def launch_counts() -> dict:
     """The kernel wrappers' launch counters (``LN``: the LayerNorm kernel's
-    affine mode)."""
-    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
+    affine mode; ``decode``: the cached decode's attention)."""
+    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, decode_attention, ffn
 
     return {"K1": attention.LAUNCHES, "K2": attention.LAUNCHES_BWD,
             "K3": ffn.LAUNCHES_FFN, "K4": attention.LAUNCHES_BLOCK,
             "K5": attention_blockdiag.LAUNCHES_BLOCKDIAG, "K6": attention.LAUNCHES_SMAJOR,
-            "adaLN": adaln.LAUNCHES_ADALN, "LN": adaln.LAUNCHES_LN}
+            "adaLN": adaln.LAUNCHES_ADALN, "LN": adaln.LAUNCHES_LN,
+            "decode": decode_attention.LAUNCHES_DECODE_ATTN}
 
 
 def reset_launches() -> None:
-    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn
+    from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, decode_attention, ffn
 
     attention.LAUNCHES = attention.LAUNCHES_BWD = attention.LAUNCHES_BLOCK = 0
     attention.LAUNCHES_LONG = 0
     attention.LAUNCHES_SMAJOR = ffn.LAUNCHES_FFN = attention_blockdiag.LAUNCHES_BLOCKDIAG = 0
     adaln.LAUNCHES_ADALN = adaln.LAUNCHES_LN = 0
+    decode_attention.LAUNCHES_DECODE_ATTN = 0
+
+
+def decode_launches(model) -> int:
+    """Decode attention kernel launches of one cached chain of ``model``
+    (the autoregressive LayoutTransformer or BART): a layer's
+    self-attention, and BART's cross-attention, once a generated token, on
+    a CUDA device where the kernel takes the decoder's heads, length and
+    dtype, else 0."""
+    from layoutdm_tpu_torch.ops.decode_attention import can_use_decode_attention
+
+    net = model.net
+    enc_dec = hasattr(net, "decoder")
+    attn = net.dec0.self_attn if enc_dec else net.backbone.layers[0].attn
+    if model.device.type != "cuda" or not can_use_decode_attention(
+            attn.nhead, attn.head_dim, net.max_token_length, net.dtype):
+        return 0
+    return (1 + enc_dec) * model.backbone_cfg.num_layers * model.gen_len
 
 
 def adaln_blocks(model) -> int:
@@ -629,17 +698,20 @@ def ln_launches(path: str, layers: int, forwards: int) -> int:
     return ((path != "fused") * layers + 1) * forwards
 
 
-def check_path_launches(what: str, path: str, per_kernel: int, adaln=None, *, ln) -> dict:
+def check_path_launches(what: str, path: str, per_kernel: int, adaln=None, *, ln,
+                        decode: int = 0) -> dict:
     """Inference launches since the last reset: ``per_kernel`` for each
     kernel of ``path``, ``adaln`` adaLN launches (by default
     ``per_kernel``: a LayoutDM denoiser, whose every layer's norm1 takes
     the kernel), ``ln`` affine LayerNorm launches (None: not held, for a
-    model whose forwards `ln_norms` does not count), none of the other
+    model whose forwards `ln_norms` does not count), ``decode`` launches of
+    the cached decode's attention (`decode_launches`), none of the other
     forward kernels."""
     got = {k: v for k, v in launch_counts().items() if k != "K2"}
     want = {k: per_kernel if k in DENOISER_PATHS[path][1] else 0 for k in got}
     want["adaLN"] = per_kernel if adaln is None else adaln
     want["LN"] = got["LN"] if ln is None else ln
+    want["decode"] = decode
     if got != want or per_kernel == 0:
         raise AssertionError(f"{what}: launches {got} != {want}")
     return got
@@ -865,13 +937,16 @@ def check_decoded(what: str, out: dict, B: int, cfg) -> int:
     return n
 
 
-def _no_launches(what: str, ln: bool = True) -> dict:
+def _no_launches(what: str, ln: bool = True, decode: int = 0) -> dict:
     """Masked attention never reaches a kernel: every count is 0 (the
     LayerNorms' affine mode too, but where ``ln`` is False: a masked
-    forward without autograd takes it)."""
+    forward without autograd takes it), but ``decode`` launches of the
+    cached decode's attention (`decode_launches`)."""
     got = launch_counts()
-    if any(v for k, v in got.items() if ln or k != "LN"):
-        raise AssertionError(f"{what}: kernels launched on masked calls: {got}")
+    if got["decode"] != decode or any(v for k, v in got.items()
+                                      if k != "decode" and (ln or k != "LN")):
+        raise AssertionError(f"{what}: kernels launched on masked calls: {got}, "
+                             f"decode {decode} wanted")
     return got
 
 
@@ -953,7 +1028,9 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
     reference's key names with ``torch.save`` and imported through its
     converter (all but the aggregated LayoutDM, which has none; every
     parameter assigned, no key left over; logits within ZOO_IMPORT_TOL).
-    Masked attention (the zoo, BART's decoder) launches no kernel.  Then,
+    Masked attention (the zoo, BART's teacher-forced decoder) launches no
+    kernel; the cached steps of the autoregressive model and BART launch
+    the decode attention kernel (`decode_launches`).  Then,
     in float32, the cached decodes of the autoregressive model and BART
     against their recompute decodes on ``rows`` rows; MaskGIT sampled under
     ``fused_ffn`` (K3 launched layers x steps); BART, DiffusionLM,
@@ -1049,11 +1126,13 @@ def phase_zoo(work_dir: str, device="cuda", batch=256, warmup=2, steps=5, rows=4
             sample_launches = check_path_launches(f"{family} chain", "default", layers * T,
                                                   adaln=adaln_blocks(model) * T,
                                                   ln=ln_norms(model) * T)
-        elif family == "bart":  # the encoder once; the decoder is masked
-            sample_launches = check_path_launches("bart encoder", "default", layers, adaln=0,
-                                                  ln=None)
-        else:
-            sample_launches = _no_launches(f"{family} sampling", ln=False)
+        elif family == "bart":  # the encoder once; each cached step the decode kernel
+            sample_launches = check_path_launches("bart chain", "default", layers, adaln=0,
+                                                  ln=None, decode=decode_launches(model))
+        else:  # the autoregressive model's cached steps take the decode kernel
+            sample_launches = _no_launches(
+                f"{family} sampling", ln=False,
+                decode=decode_launches(model) if family == "autoreg" else 0)
         if family in CONTINUOUS:
             ids, layouts = layouts, model.tokenizer.decode(layouts)
             held = cond.strong_mask
@@ -2269,7 +2348,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         run(phase_parallel, work_dir=work, smi=smi)
         run(phase_dryrun, smi=smi)
-        run(phase_zoo, work_dir=work, smi=smi)
+        zoo = run(phase_zoo, work_dir=work, smi=smi)
         run(phase_fidnet_train, work_dir=work)
         run(phase_train_cli, work_dir=work)
         run(phase_demo, work_dir=work)
@@ -2296,12 +2375,13 @@ def main() -> int:
         "attention_qkv_smajor": serves["smajor"]["launches"]["K6"],
         "ada_layer_norm": serves["default"]["launches"]["adaLN"],
         "layer_norm": serves["default"]["launches"]["LN"],
+        "decode_attention": zoo["families"]["bart"]["sample"]["launches"]["decode"],
     }
     rows = []
-    for name, source, replaces, _, _ in KERNEL_TABLE:
+    for name, source, replaces, _, shapes in KERNEL_TABLE:
         if name not in launches:
             continue
-        t = timed[name][TIMED_SHAPES[0][0]]
+        t = timed[name][shapes[0][0]]
         rows.append({
             "name": name,
             "route": "cuda",

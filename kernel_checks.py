@@ -1,7 +1,8 @@
 """The port's tolerances and checkers for its hand-written kernels (K1
 attention forward, K2 its backward, K3 LayerNorm-FFN-residual, K4 attention
 block, K5 padded-head attention, K6 sequence-major attention, the LayerNorm
-kernel in its adaLN and affine modes) and for the GEMM epilogues' shim
+kernel in its adaLN and affine modes, the cached decode's attention) and for
+the GEMM epilogues' shim
 against their plain versions, and the denoiser paths with the switches that
 select them.
 
@@ -81,6 +82,16 @@ EPILOGUE_EQUAL_SHARE = 0.99
 # 4 layers rounds its residual sums at other points, half a bf16 step (2**-8)
 # a layer (H100: 0.57-0.82% at 2 and 4 layers, three seeds each)
 EPILOGUE_DENOISER_REL_TOL = 2 ** -6
+
+# the cached decode's attention (`ops.decode_attention`) against its plain
+# version, the eager einsums: in float32 the sums differ in order alone
+# (F32_TOL).  In bfloat16 both round the scores, the probabilities and the
+# output at the same points, but each q.k sum is taken in another order than
+# cuBLAS's gemv, so a score that straddles a bf16 rounding boundary may round
+# to its neighbour (a step of 2**-8 of the score), and so may a probability
+# or an output: outputs agree bit for bit but for a bf16 step on a small
+# share.  Its checker is K1's, `attention_errors`: every output within
+# BF16_TOL, the mean error within ATTN_BF16_MEAN_REL of the mean |output|.
 
 # the denoiser paths: the `build_model` switches each turns on, and the
 # kernels each launches once a layer and forward

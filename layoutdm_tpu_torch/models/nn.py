@@ -40,7 +40,11 @@ mask; the JAX gates decline masks for every kernel, and so do these.
 Without a mask no mask tensor is built and the kernels are routed as
 before.  ``CategoricalTransformer.decode_step`` feeds one token through
 the stack against per-layer key/value caches (`KVCache`), the JAX
-``decode=True`` mode.
+``decode=True`` mode.  The cached decode's attention (self-attention with
+its cache write, and an encoder-decoder's cross-attention over the keys
+and values projected once) runs one kernel a call on a CUDA tensor without
+autograd, at the shapes it takes (`ops.decode_attention`), at the eager
+arithmetic's rounding points; elsewhere that arithmetic itself.
 
 The other denoisers of the JAX package are here too, on the same blocks:
 `CategoricalAggregatedTransformer` (attention over elements),
@@ -66,7 +70,7 @@ FFN of a masked inference call, as in the JAX ``Block``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -94,6 +98,12 @@ from layoutdm_tpu_torch.ops.attention_blockdiag import (
     padded_head_dim,
     scatter_out_weights,
     scatter_qkv_weights,
+)
+from layoutdm_tpu_torch.ops.decode_attention import (
+    can_use_decode_attention,
+    check_decode_operands,
+    decode_attention_reference,
+    launch_decode_attention,
 )
 from layoutdm_tpu_torch.ops.ffn import (
     ACTIVATIONS,
@@ -292,7 +302,9 @@ class KVCache:
     values in the compute dtype, and the position the next token takes.
     An encoder-decoder also holds each decoder layer's cross-attention
     keys and values, projected once from the encoder memory
-    (`CategoricalEncDecTransformer.new_cache`)."""
+    (`CategoricalEncDecTransformer.new_cache`).  The decode attention
+    kernel's operands are checked at the cache's first kernel call
+    (`attend`): its lists' tensors are replaced, if at all, before it."""
 
     def __init__(self, num_layers: int, batch: int, length: int, nhead: int,
                  head_dim: int, dtype, device):
@@ -302,6 +314,33 @@ class KVCache:
         self.cross_keys: list = []
         self.cross_values: list = []
         self.index = 0
+        self.checked = False
+
+    def attend(self, q: torch.Tensor, layer: int,
+               new: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """A cached decode's attention (`ops.decode_attention`): one query a
+        row, q (B, 1, H, hd), against ``layer``'s self-attention caches,
+        ``new`` (this step's k and v) written at ``index`` first, or
+        without ``new`` against its cross keys and values.  The kernel on a
+        CUDA tensor without autograd at the shapes it takes, every operand
+        of every layer checked at the first such call; its plain version
+        otherwise."""
+        if new is None:
+            keys, values = self.cross_keys[layer], self.cross_values[layer]
+            n = keys.shape[1]
+        else:
+            keys, values, n = self.keys[layer], self.values[layer], self.index + 1
+        _, _, H, hd = q.shape
+        if (not q.is_cuda or torch.is_grad_enabled()
+                or not can_use_decode_attention(H, hd, keys.shape[1], q.dtype)):
+            return decode_attention_reference(q, keys, values, n, new)
+        if not self.checked:
+            for k, v in zip(self.keys, self.values):
+                check_decode_operands(q, k, v, new)
+            for k, v in zip(self.cross_keys, self.cross_values):
+                check_decode_operands(q, k, v)
+            self.checked = True
+        return launch_decode_attention(q, keys, values, n, new)
 
 
 class SelfAttention(nn.Module):
@@ -385,19 +424,14 @@ class SelfAttention(nn.Module):
     def decode_step(self, x: torch.Tensor, cache: KVCache, layer: int) -> torch.Tensor:
         """One token (B, 1, D) against the filled prefix of ``layer``'s
         caches, its own key and value written at ``cache.index`` (JAX
-        `SelfAttention._decode_step`, `nn.py:185-213`).  The JAX step fills
-        the scores past the prefix with -1e9, whose weights are exactly 0
-        after the softmax: here those keys are left out."""
+        `SelfAttention._decode_step`, `nn.py:185-213`), both in one call of
+        `KVCache.attend`.  The JAX step fills the scores past the prefix
+        with -1e9, whose weights are exactly 0 after the softmax: here those
+        keys are left out."""
         dt, H, hd = self.dtype, self.nhead, self.head_dim
-        B, _, D = x.shape
-        i = cache.index
+        B = x.shape[0]
         q, k, v = _linear(x, self.qkv, dt).reshape(B, 1, 3, H, hd).unbind(2)
-        cache.keys[layer][:, i] = k[:, 0]
-        cache.values[layer][:, i] = v[:, 0]
-        keys, values = cache.keys[layer][:, : i + 1], cache.values[layer][:, : i + 1]
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, keys) / math.sqrt(hd)
-        attn = torch.softmax(scores.float(), dim=-1).to(dt)
-        o = torch.einsum("bhqk,bkhd->bqhd", attn, values).reshape(B, 1, D)
+        o = cache.attend(q, layer, (k, v))
         return _linear(o, self.out, dt)
 
     def _blockdiag(self, x: torch.Tensor) -> torch.Tensor:
@@ -691,8 +725,9 @@ class CrossAttention(nn.Module):
     """Decoder cross-attention (JAX `CrossAttention`, `nn.py:838-896`): a
     q projection of the decoder stream, a packed kv projection of the
     encoder memory and an out projection, on the plain path (scores in the
-    compute dtype, float32 softmax cast back).  No kernel takes it, in the
-    JAX package or here."""
+    compute dtype, float32 softmax cast back).  The cached decode (keys and
+    values projected before) runs through `KVCache.attend`, which reads
+    them in place from the packed projection."""
 
     def __init__(self, d_model: int, nhead: int, dtype=torch.float32):
         super().__init__()
@@ -709,17 +744,17 @@ class CrossAttention(nn.Module):
         return kv.unbind(2)
 
     def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
-                kv: Optional[tuple] = None) -> torch.Tensor:
-        """``kv``: keys and values projected before (the cached decode),
-        else projected from ``memory``."""
+                cache: Optional[KVCache] = None, layer: int = 0) -> torch.Tensor:
+        """``cache``: the cached decode, ``layer``'s keys and values
+        projected before (`KVCache.attend`); else projected from
+        ``memory``."""
         dt, H, hd = self.dtype, self.nhead, self.head_dim
-        B, S, D = x.shape
+        B, S, _ = x.shape
         q = _linear(x, self.q, dt).reshape(B, S, H, hd)
-        k, v = kv if kv is not None else self.project_memory(memory)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-        attn = torch.softmax(scores.float(), dim=-1).to(dt)
-        o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
-        return _linear(o, self.out, dt)
+        if cache is not None:
+            return _linear(cache.attend(q, layer), self.out, dt)
+        k, v = self.project_memory(memory)
+        return _linear(decode_attention_reference(q, k, v, k.shape[1]), self.out, dt)
 
 
 class DecoderBlock(nn.Module):
@@ -762,9 +797,8 @@ class DecoderBlock(nn.Module):
                 h = self.self_attn(h, dropout, mask=mask)
             x = x + drop(h, self.dropout)
         with span("layoutdm.cross_attention"):
-            kv = None if cache is None else (cache.cross_keys[layer], cache.cross_values[layer])
-            x = x + drop(self.cross_attn(affine_norm(self.norm2, x, self.dtype), memory, kv),
-                         self.dropout)
+            x = x + drop(self.cross_attn(affine_norm(self.norm2, x, self.dtype), memory, cache,
+                                         layer), self.dropout)
         with span("layoutdm.dec_ffn"):
             if (self.fused_ffn and cache is None and dropout is None
                     and not torch.is_grad_enabled()):

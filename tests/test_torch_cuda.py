@@ -1,11 +1,13 @@
 """The port on a CUDA card, and its one check there of each hand-written
 kernel (K1 attention forward, K2 its backward, K3 LayerNorm-FFN-residual,
 K4 attention block, K5 padded-head attention, K6 sequence-major attention,
-the LayerNorm kernel in its adaLN norm1 and affine modes) and of the GEMM
-epilogues' cuBLASLt shim against its plain version: at the tile edges, at
-the sampling cells' shapes and at every family's widths.  Then the
-denoiser on every path, a train step and a chain's launches, BART's cached
-decode at its published widths, the per-row noise and the FIDNet feature extractor on the card against the CPU.  Every test here is marked ``cuda`` and skips
+the LayerNorm kernel in its adaLN norm1 and affine modes, the cached
+decode's attention) and of the GEMM epilogues' cuBLASLt shim against its
+plain version: at the tile edges, at the sampling cells' shapes and at every
+family's widths.  Then the denoiser on every path, a train step and a
+chain's launches, BART's cached decode at its published widths and its
+launches, the per-row noise and the FIDNet feature extractor on the card
+against the CPU.  Every test here is marked ``cuda`` and skips
 without a card.  The tolerances and checkers are ``kernel_checks.py``'s.
 
 This file imports no jax and nothing of the JAX package (as
@@ -38,7 +40,14 @@ from layoutdm_tpu_torch.bench.headline import flagship_config
 from layoutdm_tpu_torch.configs import build_train_config
 from layoutdm_tpu_torch.factory import build_model
 from layoutdm_tpu_torch.models import nn as nn_mod
-from layoutdm_tpu_torch.ops import adaln, attention, attention_blockdiag, ffn, gemm_epilogue
+from layoutdm_tpu_torch.ops import (
+    adaln,
+    attention,
+    attention_blockdiag,
+    decode_attention,
+    ffn,
+    gemm_epilogue,
+)
 from layoutdm_tpu_torch.ops.attention import (
     attention_qkv_bwd_reference,
     attention_qkv_reference,
@@ -132,12 +141,13 @@ def _takes_long_body(S, hd, dtype):
 def _launches() -> dict:
     """The kernel wrappers' launch counters (``long``: K1 and K6 calls
     that took the long bf16 body; ``epilogue``: the GEMM epilogues' shim
-    calls)."""
+    calls; ``decode``: the cached decode's attention)."""
     return {"K1": attention.LAUNCHES, "long": attention.LAUNCHES_LONG,
             "K2": attention.LAUNCHES_BWD, "K3": ffn.LAUNCHES_FFN,
             "K4": attention.LAUNCHES_BLOCK, "K5": attention_blockdiag.LAUNCHES_BLOCKDIAG,
             "K6": attention.LAUNCHES_SMAJOR, "adaLN": adaln.LAUNCHES_ADALN,
-            "LN": adaln.LAUNCHES_LN, "epilogue": gemm_epilogue.LAUNCHES_EPILOGUE}
+            "LN": adaln.LAUNCHES_LN, "epilogue": gemm_epilogue.LAUNCHES_EPILOGUE,
+            "decode": decode_attention.LAUNCHES_DECODE_ATTN}
 
 
 def _since(before: dict) -> dict:
@@ -934,3 +944,137 @@ def test_bart_cached_decode_on_card_matches_cpu(cuda):
             logits.append(torch.cat([model.net.decode_step(dec[:, i:i + 1].to(dev), cache)
                                      for i in range(cpu.seq_len)], 1).cpu())
     torch.testing.assert_close(logits[1], logits[0], rtol=0, atol=DENOISER_TOL)
+
+
+# the cached decode's attention: BART's widths (8 heads of 42: a 672-byte
+# row, one head 84 bytes) and LayoutTransformer's (8 of 64), one position to
+# the 126 of both models' caches (the chunk edges at 32 rows a ring stage:
+# 1, 2, 63, 126), both calls: self-attention (this step's k and v written
+# into (B, 126, H, hd) caches at n - 1) and cross-attention (keys and values
+# read in place from the packed (B, n, 2, H, hd) projection); and sharp
+# scores at BART's full length
+DECODE_CASES = [
+    (300, n, H, hd, dtype, mode, 1.0)
+    for H, hd in ((8, 42), (8, 64))
+    for n in (1, 2, 63, 126)
+    for dtype in (torch.float32, torch.bfloat16)
+    for mode in ("self", "cross")
+] + [(300, 126, 8, 42, torch.bfloat16, mode, SHARP) for mode in ("self", "cross")]
+
+
+def _decode_inputs(B, n, H, hd, dtype, device, mode, sharp=1.0, seed=0):
+    """q and this step's k and v as views of a (B, 1, 3, H, hd) projection;
+    self-attention caches of 126 positions, or cross keys and values as
+    views of a (B, n, 2, H, hd) one.  Returns q, [keys, values], new."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, 1, 3, H, hd), generator=g)
+    qkv[:, :, :2] *= sharp
+    q, k, v = qkv.to(device, dtype).unbind(2)
+    if mode == "self":
+        caches = [(torch.randn((B, 126, H, hd), generator=g) * s).to(device, dtype)
+                  for s in (sharp, 1.0)]
+        return q, caches, (k, v)
+    kv = torch.randn((B, n, 2, H, hd), generator=g)
+    kv[:, :, 0] *= sharp
+    return q, list(kv.to(device, dtype).unbind(2)), None
+
+
+@pytest.mark.parametrize("B,n,H,hd,dtype,mode,sharp", DECODE_CASES, ids=_id)
+def test_decode_attention_kernel_matches_plain_version(cuda, B, n, H, hd, dtype, mode, sharp):
+    q, kv, new = _decode_inputs(B, n, H, hd, dtype, cuda, mode, sharp)
+    mine = [t.clone() for t in kv] if mode == "self" else kv
+    before = _launches()
+    got = decode_attention.decode_attention(q, *mine, n, new)
+    assert _since(before) == {"decode": 1}
+    want = decode_attention.decode_attention_reference(q, *kv, n, new)
+    # the self call's cache write is a copy: the caches equal the plain
+    # version's bit for bit (position n - 1 written, nothing else touched)
+    assert all(torch.equal(a, b) for a, b in zip(mine, kv))
+    assert got.dtype == dtype and got.shape == (B, 1, H * hd)
+    _assert_within(attention_errors, got, want)
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
+    call = decode_attention.decode_attention
+    q, kv, new = _decode_inputs(4, 8, 8, 42, torch.bfloat16, cuda, "self")
+    with pytest.raises(ValueError):  # float16
+        call(q.half(), *(t.half() for t in kv), 8)
+    with pytest.raises(ValueError):  # an odd head width
+        call(torch.zeros((4, 1, 8, 41), device=cuda), *(torch.zeros((4, 8, 8, 41), device=cuda)
+                                                        for _ in range(2)), 8)
+    with pytest.raises(ValueError):  # more heads than the gate takes
+        call(torch.zeros((4, 1, 17, 8), device=cuda), *(torch.zeros((4, 8, 17, 8), device=cuda)
+                                                        for _ in range(2)), 8)
+    flat = torch.zeros(4 * 126 * 336 + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # caches two bytes off 16-byte alignment
+        call(q, flat[1:1 + 4 * 126 * 336].view(4, 126, 8, 42), kv[1], 8, new)
+    rows = flat[:4 * 8 * 337].view(4, 8, 337)[..., :336].view(4, 8, 8, 42)
+    with pytest.raises(ValueError):  # positions not 16-byte aligned apart
+        call(q, rows, rows, 8)
+    with pytest.raises(ValueError):  # keys and values of other lengths
+        call(q, kv[0], kv[1][:, :8], 8)
+    with pytest.raises(ValueError):  # heads not contiguous within a position
+        call(q, kv[0].transpose(2, 3).contiguous().transpose(2, 3), kv[1], 8)
+    with pytest.raises(ValueError):  # dtypes that differ
+        call(q, kv[0].float(), kv[1], 8)
+    with pytest.raises(ValueError):  # caches off the card
+        call(q, kv[0].cpu(), kv[1], 8)
+    with pytest.raises(ValueError):  # past the caches
+        call(q, *kv, 127, new)
+    with pytest.raises(ValueError):  # two queries a row
+        call(torch.cat([q, q], 1), *kv, 8)
+
+
+def test_kv_cache_checks_the_decode_operands_once(cuda, monkeypatch):
+    """A BART cached chain checks the kernel's operands at its first kernel
+    call, every layer's self caches and cross keys and values, and never
+    again; a cache whose cross keys are mislaid is refused there."""
+    cfg = build_train_config("bart", "rico25", ["data.bbox_quantization=linear",
+                                                "model.dtype=bfloat16"])
+    model = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(7))
+    layers = model.backbone_cfg.num_layers
+    checks = []
+    real = nn_mod.check_decode_operands
+    monkeypatch.setattr(nn_mod, "check_decode_operands",
+                        lambda *a, **kw: checks.append(1) or real(*a, **kw))
+    model.sample_ids(torch.Generator(cuda).manual_seed(1), 8)
+    assert len(checks) == 2 * layers
+    new_cache = model.net.new_cache
+
+    def mislaid(batch, memory):
+        cache = new_cache(batch, memory)
+        cache.cross_keys[0] = cache.cross_keys[0].transpose(2, 3).contiguous().transpose(2, 3)
+        return cache
+
+    monkeypatch.setattr(model.net, "new_cache", mislaid)
+    with pytest.raises(ValueError):
+        model.sample_ids(torch.Generator(cuda).manual_seed(1), 8)
+
+
+def test_decode_attention_launches_on_a_bart_chain_and_nowhere_else(cuda):
+    """A bf16 BART cached chain at Rico25's widths (4 decoder layers, 125
+    steps) launches the kernel twice a layer and step, 1,000 times; its
+    recompute decode, its teacher-forced forward and a train step none."""
+    from layoutdm_tpu_torch.train.step import init_train_state, make_optimizer, train_step
+
+    cfg = build_train_config("bart", "rico25", ["data.bbox_quantization=linear",
+                                                "model.dtype=bfloat16"])
+    model = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(7))
+    layers, steps = model.backbone_cfg.num_layers, model.gen_len
+    before = decode_attention.LAUNCHES_DECODE_ATTN
+    model.sample_ids(torch.Generator(cuda).manual_seed(1), 8)
+    torch.cuda.synchronize()
+    assert decode_attention.LAUNCHES_DECODE_ATTN - before == 2 * layers * steps == 1000
+    before = _launches()
+    model.sample_ids(torch.Generator(cuda).manual_seed(1), 2, use_cache=False)
+    rs = np.random.RandomState(2)
+    enc, dec = (torch.as_tensor(rs.randint(0, model.num_classes, (4, model.seq_len)),
+                                device=cuda) for _ in range(2))
+    with torch.inference_mode():
+        model.net(enc, dec)
+    E = cfg.dataset.max_seq_length
+    batch = {"label": rs.randint(0, 5, (4, E)), "bbox": rs.rand(4, E, 4).astype(np.float32),
+             "mask": np.arange(E)[None] < rs.randint(1, E + 1, (4, 1))}
+    state = init_train_state(model, make_optimizer(model.net), 1.0)
+    train_step(state, model.preprocess(batch), torch.Generator(cuda).manual_seed(5))
+    assert "decode" not in _since(before)
